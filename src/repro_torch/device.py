@@ -1,0 +1,32 @@
+"""Device resolution for every entry point of the port.
+
+The port runs on a CUDA card unless the caller asks for the CPU: entry
+points (``GNNInferenceEngine``, ``prepare``, ``DualCache.build`` and the
+CLI) take a ``device`` argument that defaults to ``"cuda"``.  When no card
+is present and the CPU was not asked for, they raise instead of quietly
+carrying on on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means ``"cuda"``.
+
+    Raises ``RuntimeError`` for a CUDA device when no card is available,
+    and ``ValueError`` for a device type other than CUDA or CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

@@ -4,6 +4,12 @@ import pytest
 from repro.graph.datasets import load_dataset
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped (by a fixture) where there is none"
+    )
+
+
 @pytest.fixture(scope="session")
 def small_dataset():
     return load_dataset("ogbn-products", scale=0.002, seed=0)
