@@ -9,11 +9,14 @@ Imports nothing of JAX and nothing of the JAX package.  Phases, none of
 whose errors is caught:
 
 1. device: the card's name and power limit;
-2. build: compile ``src/repro_torch/csrc/cached_gather.cu`` with ``nvcc``
-   and print the ``-Xptxas -v`` summary; measure the pinned host→device
-   copy rate;
+2. build: compile the three sources of ``src/repro_torch/csrc/``
+   (``cached_gather.cu``, ``seg_agg.cu``, ``flash_attention.cu``) with
+   ``nvcc``, one process each, all started together, and print the
+   ``-Xptxas -v`` summary; measure the pinned host→device copy rate;
 3. main-path setup: ``load_dataset("ogbn-products", scale=1.0)`` (Table II
-   size) and ``prepare("dci", total_cache_bytes=256 MB)`` on the card;
+   size) and ``prepare("dci", total_cache_bytes=256 MB)`` on the card
+   (presampling gathers through kernel #1, so this also sets the Eq. 1
+   split the card's own feature route implies);
 4. kernel parity: the three gather kernels against ``ref.py``
    (``torch.equal``) at the main-path shape — one batch of 1024 seeds at
    fan-outs 15,10,5 gives 1024·16·11·6 = 1,081,344 input rows — for
@@ -24,25 +27,52 @@ whose errors is caught:
    ``ref.py``, ``torch.index_select`` on a device-resident table, and the
    bytes bound (PCIe at the card's published Gen5 x16 peak); then the
    device work of one batch's feature stage on the plain and the dedup
-   kernel route, with the dedup sort and #2's classification alone;
-5. main path: GraphSAGE (3 layers, hidden 128) through
-   ``GNNInferenceEngine`` on the kernel route, with and without dedup, at
-   depth 1 (stages synchronized) and depth 2, and the table route at
-   depth 1 — one prepared pipeline, one seed; the logits must be
-   identical, and the launch counters of kernels #1 and #2 (set to 0 just
-   before each route and read just after) must be > 0;
-6. the CLI, once, as a subprocess.
+   kernel route, with the dedup sort and #2's classification alone, and
+   the prefetch staging of one batch's misses (host clock, with its
+   device→host id read alone), whose pack #1 and #2 must read to the
+   same rows;
+5. B4, ``seg_agg``: against ``ref.py`` in float32 and bfloat16 on the
+   edge shapes of tests/test_kernels.py and at the main path's
+   first-layer shape ``[180224, 5, 100]`` (1,081,344 frontier rows
+   reduced to 180,224 destination nodes), timed beside ``ref.py``,
+   ``x.sum(1)`` and its bytes bound;
+6. B5, ``flash_attention``: against ``ref.py`` on the cases of
+   tests/test_kernels.py in float32 and bfloat16, GQA included, and at
+   Gemma-2 27B's attention shape (B 1, Hq 32, Hkv 16, D 128, bf16,
+   S 4096, causal, window 4096, softcap 50) and its decode shape (Sq 1).
+   Every bfloat16 output is held twice: against ``ref.py`` in bfloat16
+   (5e-2) and against ``ref.py`` in float32 on the same inputs (rtol
+   2e-2, atol 2e-3); at the Gemma-2 shapes the float32 kernel also runs
+   on the upcast inputs against ``ref.py`` in float32 (3e-4).  Timed
+   beside ``ref.py``, ``flex_attention`` (compiled once, before the
+   timing) with the same softcap and mask — the library time —,
+   ``scaled_dot_product_attention`` at the same shapes without softcap,
+   and the bound (bf16 tensor-core peak, bytes);
+7. the ops path: ``repro_torch.kernels.aggregate_neighbors`` at the
+   main path's shape and ``multi_head_attention`` at both Gemma-2 shapes,
+   with the counters of B4 and B5 set to 0 just before and read just
+   after (each must be > 0);
+8. main path: GraphSAGE (3 layers, hidden 128) through
+   ``GNNInferenceEngine`` on the kernel route, with and without dedup and
+   with and without prefetch, at depth 1 (stages synchronized) and
+   depth 2, and the table route at depth 1 — one prepared pipeline, one
+   seed; logits and hit counts must be identical, and the launch
+   counters of kernels #1 and #2 (set to 0 just before each route and
+   read just after) must be > 0;
+9. the CLI, once, as a subprocess, with ``--prefetch``.
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
-The details go to ``chiprun_out/chip_smoke.json``.  The last three lines
-are the card (as ``nvidia-smi`` reports it), the kernels' JSON line and
-``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
+Bounds use the published peaks of the card ``nvidia-smi`` names
+(``CARD_PEAKS``).  The details go to ``chiprun_out/chip_smoke.json``.
+The last three lines are the card (as ``nvidia-smi`` reports it), the
+kernels' JSON line and ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import pathlib
@@ -60,10 +90,37 @@ BATCH = 1024
 MAIN_ROWS = BATCH * 16 * 11 * 6  # 1,081,344 input-frontier rows per batch
 CACHE_BYTES = 256 * 10**6
 MAIN_BATCHES = 8
+SEG_SHAPE = (180_224, 5, 100)  # first GraphSAGE layer: 1024*16*11 dst nodes, fanout 5, F 100
+# Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
+GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
+SEG_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+# The bfloat16 kernel against ref.py computed in float32 from the same
+# bfloat16 inputs (rtol, atol): the kernel rounds only p and its output to
+# bfloat16, about 2**-9 relative, so this holds late rows whose |out| is
+# near 0.03, where the 5e-2 parity check above could not see a dropped
+# key tile.
+ATT_TOL_BF16_F32 = (2e-2, 2e-3)
 REPLACES = {
     "cached_gather": "src/repro/kernels/cached_gather/kernel.py:152",
     "cached_gather_blocks": "src/repro/kernels/cached_gather/kernel.py:347",
     "cached_gather_select": "src/repro/kernels/cached_gather/kernel.py:500",
+    "seg_agg": "src/repro/kernels/seg_agg/kernel.py:32",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
+}
+SOURCES = {
+    "cached_gather": "src/repro_torch/csrc/cached_gather.cu",
+    "cached_gather_blocks": "src/repro_torch/csrc/cached_gather.cu",
+    "cached_gather_select": "src/repro_torch/csrc/cached_gather.cu",
+    "seg_agg": "src/repro_torch/csrc/seg_agg.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+}
+# Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s and
+# device-memory bytes/s, by a substring of the name nvidia-smi reports.
+CARD_PEAKS = {
+    "H100 PCIe": (756e12, 2.0e12),
+    "H100 NVL": (835e12, 3.9e12),
+    "H100": (989e12, 3.35e12),  # SXM (the "H100 80GB HBM3")
 }
 
 
@@ -106,22 +163,35 @@ def device_phase() -> dict:
     return {"nvidia_smi": smi, "kind": name, "count": torch.cuda.device_count()}
 
 
+def card_peaks(name: str) -> tuple[float, float]:
+    """(bf16 FLOP/s, bytes/s) of the card, from CARD_PEAKS."""
+    return next(v for k, v in CARD_PEAKS.items() if k in name)
+
+
 def build_phase() -> dict:
     import torch
 
     from repro_torch.kernels._build import build_library
-    from repro_torch.kernels.cached_gather.kernel import load_library
+    from repro_torch.kernels.cached_gather import kernel as cg
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.seg_agg import kernel as sa
     from repro_torch.runtime.gnn_engine import HBM3_BW, PCIE5_BW
 
     phase("2. build")
     t0 = time.perf_counter()
-    lib, report = build_library("cached_gather")
-    load_library()
+    names = ("cached_gather", "seg_agg", "flash_attention")
+    # One nvcc per source, all started together; each call raises on failure.
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(build_library, names)))
+    for mod in (cg, sa, fa):
+        mod.load_library()
     build_s = time.perf_counter() - t0
-    log(f"built {lib.relative_to(ROOT)} in {build_s:.1f} s; ptxas -v:")
-    for line in report.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v:")
+    for name, (lib, report) in built.items():
+        log(f"  {lib.relative_to(ROOT)}")
+        for line in report.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log("    " + line.strip())
     # Pinned host -> device copy rate: the miss path's link, measured.
     nbytes = 1 << 30
     src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
@@ -265,7 +335,257 @@ def feature_stage_phase(eng, case) -> dict:
     }
     log("  feature-stage device work, one batch (CUDA events, mean of 5): "
         + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    # Prefetch staging of the same batch's misses, on the host clock (it
+    # reads the ids back, packs on the host and copies on a side stream),
+    # and the device->host id read alone.  #1 and #2 must read the pack
+    # to the rows they gather from the pinned table.
+    nu = int(dd.num_unique)
+    for label, gather_ids, live, row_block in (("full", ids, None, None),
+                                               ("dedup", uids, nu, ROW_BLOCK)):
+        want, _ = store.gather(gather_ids, use_kernel=True, row_block=row_block)
+        laps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = store.prefetch_misses(gather_ids, num_live=live)
+            staged.ready.synchronize()
+            laps.append(time.perf_counter() - t0)
+        got, _ = store.gather(gather_ids, use_kernel=True, row_block=row_block, prefetched=staged)
+        n = gather_ids.shape[0] if live is None else live
+        if not torch.equal(got[:n], want[:n]):
+            raise AssertionError(f"the {label} gather from the prefetched pack disagrees")
+        times[f"prefetch_{label}_ms"] = 1e3 * min(laps)
+        times[f"prefetch_{label}_rows"] = staged.num_miss
+        times[f"prefetch_{label}_pack_rows"] = int(staged.rows.shape[0])
+    laps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids.cpu()
+        laps.append(time.perf_counter() - t0)
+    times["id_read_ms"] = 1e3 * min(laps)
+    log(f"  prefetch staging, one batch (host clock, best of 3): full frontier "
+        f"{times['prefetch_full_ms']:.3f} ms for {times['prefetch_full_rows']} miss rows "
+        f"(pack {times['prefetch_full_pack_rows']}), dedup {times['prefetch_dedup_ms']:.3f} ms for "
+        f"{times['prefetch_dedup_rows']} (pack {times['prefetch_dedup_pack_rows']}); the "
+        f"{ids.numel() * 4 / 1e6:.1f} MB id read alone {times['id_read_ms']:.3f} ms; "
+        "#1 and #2 read the packs to equal rows")
     return times
+
+
+def seg_agg_phase(hbm: float) -> tuple[dict, float]:
+    """B4 against ref.py on the edge shapes and the main-path shape, and
+    its times there.  Returns (main-shape row, max abs err)."""
+    import torch
+
+    from repro_torch.kernels.seg_agg import kernel as sa
+    from repro_torch.kernels.seg_agg.ref import seg_agg_ref
+
+    phase(f"5. B4 seg_agg: parity and timing at {SEG_SHAPE}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    max_err = 0.0
+    shapes = [(32, 5, 128), (7, 2, 602), (100, 15, 64), (1, 1, 1), SEG_SHAPE]
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for mode in ("sum", "mean"):
+                got = sa.seg_agg(x, mode=mode)
+                want = seg_agg_ref(x, mode=mode)
+                torch.cuda.synchronize()
+                tol = SEG_TOL[str(dtype).split(".")[1]]
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+                max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+    log(f"  {len(shapes)} shapes x f32/bf16 x sum/mean equal ref.py within 1e-6 / 2e-2; "
+        f"max abs err {max_err:.3g}")
+    x = torch.randn(SEG_SHAPE, generator=gen, device="cuda")
+    s, _, f = SEG_SHAPE
+    nbytes = (x.numel() + s * f) * x.element_size()
+    row = dict(shape=list(SEG_SHAPE), dtype="float32", mode="sum",
+               ms=cuda_ms(lambda: sa.seg_agg(x), reps=20),
+               plain_ms=cuda_ms(lambda: seg_agg_ref(x), reps=20),
+               library_ms=cuda_ms(lambda: x.sum(1), reps=20),
+               bound_ms=1e3 * nbytes / hbm, bytes=nbytes)
+    log(f"  [{s}, 5, {f}] f32 sum: kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+        f"({nbytes} B)  ref.py {row['plain_ms']:.4f} ms  x.sum(1) {row['library_ms']:.4f} ms")
+    return row, max_err
+
+
+def kept_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    import numpy as np
+
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk, i + 1) if causal else np.full(sq, sk, np.int64)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def gemma_inputs(sq: int):
+    import torch
+
+    g = GEMMA
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31 + sq)
+    q = torch.randn((g["b"], g["hq"], sq, g["d"]), generator=gen, device="cuda")
+    k, v = (torch.randn((g["b"], g["hkv"], g["s"], g["d"]), generator=gen, device="cuda")
+            for _ in range(2))
+    return q.bfloat16(), k.bfloat16(), v.bfloat16()
+
+
+def flex_library(sq: int, sk: int, causal: bool, window: int | None, softcap: float):
+    """The one PyTorch call that computes B5's function: ``flex_attention``
+    with Gemma-2's softcap as its score_mod (applied to the scaled score
+    before the mask, as the kernel does) and the causal/window mask as a
+    block mask, compiled here, once."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, qi, ki):
+        keep = qi >= ki if causal else qi >= 0
+        return keep & (qi - ki < window) if window is not None else keep
+
+    block_mask = create_block_mask(mask_mod, None, None, sq, sk, device="cuda")
+    compiled = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: compiled(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                                    enable_gqa=True)
+
+
+def check_attention(got, q, k, v, kw) -> float:
+    """Hold one kernel output against ref.py on the same inputs in their
+    dtype, and a bfloat16 output also against ref.py in float32; returns
+    the max abs error against the same-dtype ref.py."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
+
+    hq = q.shape[1]
+    want = attention_ref(q, expand_kv(k, hq), expand_kv(v, hq), **kw)
+    tol = ATT_TOL[str(q.dtype).split(".")[1]]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    err = float((got.float() - want.float()).abs().max())
+    if q.dtype == torch.bfloat16:
+        del want
+        want = attention_ref(q.float(), expand_kv(k.float(), hq), expand_kv(v.float(), hq), **kw)
+        rtol, atol = ATT_TOL_BF16_F32
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+    return err
+
+
+def attention_phase(peaks: tuple[float, float]) -> tuple[dict, float]:
+    """B5 against ref.py on the kernel tests' cases and at Gemma-2 27B's
+    shapes, and its times there.  Returns (rows by shape, max abs err
+    against ref.py in the inputs' dtype)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
+
+    phase("6. B5 flash_attention: parity and timing at Gemma-2 27B's shapes")
+    torch.backends.cuda.matmul.allow_tf32 = False  # ref.py's float32 products in full fp32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    cases = [  # tests/test_kernels.py:205-214, the decode case :249-256, a GQA case
+        (1, 1, 1, 128, 128, 64, True, None, None), (1, 1, 1, 256, 256, 128, True, None, 50.0),
+        (1, 1, 1, 200, 200, 64, True, 64, None), (1, 1, 1, 128, 128, 64, False, None, None),
+        (1, 1, 1, 96, 160, 64, False, None, None), (1, 1, 1, 64, 64, 128, True, 16, 30.0),
+        (1, 1, 1, 1, 1024, 64, False, None, None), (2, 8, 2, 64, 64, 32, True, None, None),
+        (1, 1, 1, 200, 64, 32, False, 64, None),
+    ]
+    max_err = 0.0
+    for b, hq, hkv, sq, sk, d, causal, window, cap in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((b, hkv, sk, d), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            got = fa.flash_attention(q, k, v, **kw)
+            max_err = max(max_err, check_attention(got, q, k, v, kw))
+    log(f"  {len(cases)} cases x f32/bf16 equal ref.py within 3e-4 / 5e-2, and bf16 ref.py "
+        f"in f32 within rtol 2e-2 atol 2e-3; max abs err {max_err:.3g}")
+    g = GEMMA
+    bf16_peak, hbm = peaks
+    rows = {}
+    for label, sq, causal in (("prefill", g["s"], True), ("decode", 1, False)):
+        q, k, v = gemma_inputs(sq)
+        kw = dict(causal=causal, window=g["window"], softcap=g["softcap"])
+        err = check_attention(fa.flash_attention(q, k, v, **kw), q, k, v, kw)
+        max_err = max(max_err, err)
+        # The float32 kernel on the same inputs, upcast: the tight check of
+        # this shape's GQA indexing and of every key tile.
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        err32 = check_attention(fa.flash_attention(q32, k32, v32, **kw), q32, k32, v32, kw)
+        del q32, k32, v32
+        library = flex_library(sq, g["s"], causal, g["window"], g["softcap"])
+        lib_out = library(q, k, v)
+        lib_err = check_attention(lib_out, q, k, v, kw)
+        del lib_out
+        torch.cuda.empty_cache()
+        pairs = g["b"] * g["hq"] * kept_pairs(sq, g["s"], causal, g["window"])
+        flops = 4 * g["d"] * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, out written
+        bound = 1e3 * max(flops / bf16_peak, nbytes / hbm)
+        nocap = dict(causal=causal, window=g["window"] if causal else None)
+        row = dict(
+            shape=[g["b"], g["hq"], g["hkv"], sq, g["s"], g["d"]], causal=causal,
+            window=g["window"], softcap=g["softcap"], flops=flops, bytes=nbytes, max_abs_err=err,
+            f32_max_abs_err=err32, library_max_abs_err=lib_err,
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=5),
+            plain_ms=cuda_ms(lambda: attention_ref(
+                q, expand_kv(k, g["hq"]), expand_kv(v, g["hq"]), **kw), reps=2),
+            library_ms=cuda_ms(lambda: library(q, k, v), reps=5),
+            bound_ms=bound, bound_by="operations" if flops / bf16_peak > nbytes / hbm else "bytes",
+            nocap_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **nocap), reps=5),
+            sdpa_nocap_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps=5),
+        )
+        rows[label] = row
+        log(f"  {label} {row['shape']} bf16 causal={causal} window {g['window']} softcap "
+            f"{g['softcap']}: kernel {row['ms']:.3f} ms  bound {bound:.4f} ms ({row['bound_by']}, "
+            f"{flops / 1e9:.1f} GFLOP)  ref.py {row['plain_ms']:.3f} ms  flex_attention "
+            f"{row['library_ms']:.3f} ms; without softcap: kernel {row['nocap_ms']:.3f} ms  "
+            f"scaled_dot_product_attention {row['sdpa_nocap_ms']:.3f} ms")
+        log(f"    max abs err vs ref.py: bf16 kernel {err:.3g} (also within rtol 2e-2 atol 2e-3 "
+            f"of ref.py in f32), f32 kernel {err32:.3g} (within 3e-4), flex_attention {lib_err:.3g}")
+    return rows, max_err
+
+
+def ops_path_phase() -> dict:
+    """The slice's ops path: the public ops of repro_torch.kernels at the
+    shapes above, with B4's and B5's counters set to 0 just before and
+    read just after."""
+    import torch
+
+    from repro_torch.kernels import aggregate_neighbors, multi_head_attention
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.seg_agg import kernel as sa
+
+    phase("7. ops path: aggregate_neighbors and multi_head_attention (repro_torch.kernels)")
+    x = torch.randn(SEG_SHAPE, generator=torch.Generator(device="cuda").manual_seed(SEED + 51),
+                    device="cuda")
+    inputs = {label: gemma_inputs(sq) for label, sq in (("prefill", GEMMA["s"]), ("decode", 1))}
+    g = GEMMA
+    counters = (sa.seg_agg, fa.flash_attention)
+    for fn in counters:
+        fn.launches = 0
+    agg = aggregate_neighbors(x, mode="mean", use_kernel=True)
+    outs = {label: multi_head_attention(q, k, v, causal=label == "prefill", window=g["window"],
+                                        softcap=g["softcap"], use_kernel=True)
+            for label, (q, k, v) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if agg.shape != (SEG_SHAPE[0], SEG_SHAPE[2]) or not bool(torch.isfinite(agg).all()):
+        raise AssertionError(f"aggregate_neighbors gave {tuple(agg.shape)}, finite="
+                             f"{bool(torch.isfinite(agg).all())}")
+    for label, out in outs.items():
+        if out.shape != inputs[label][0].shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"multi_head_attention ({label}) gave {tuple(out.shape)}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"an ops-path kernel was never launched: {launches}")
+    log(f"  launches on the ops path: {launches}; outputs finite, shapes "
+        f"{tuple(agg.shape)}, {[tuple(o.shape) for o in outs.values()]}")
+    return launches
 
 
 def kernel_phase(inputs, h2d) -> tuple[dict, list]:
@@ -349,18 +669,24 @@ def main_path_phase(eng) -> dict:
     from repro_torch.core.config import EngineConfig
     from repro_torch.kernels.cached_gather import kernel as tk
 
-    phase(f"5. main path: GraphSAGE 3x128, fanouts {FANOUTS}, batch {BATCH}, "
+    phase(f"8. main path: GraphSAGE 3x128, fanouts {FANOUTS}, batch {BATCH}, "
           f"{MAIN_BATCHES} batches per route")
     routes = {
         "kernel_d1": EngineConfig(use_kernel=True, pipeline_depth=1),
         "kernel_d2": EngineConfig(use_kernel=True, pipeline_depth=2),
         "kernel_dedup_d1": EngineConfig(use_kernel=True, dedup=True, pipeline_depth=1),
         "kernel_dedup_d2": EngineConfig(use_kernel=True, dedup=True, pipeline_depth=2),
+        "kernel_prefetch_d1": EngineConfig(use_kernel=True, prefetch=True, pipeline_depth=1),
+        "kernel_prefetch_d2": EngineConfig(use_kernel=True, prefetch=True, pipeline_depth=2),
+        "kernel_dedup_prefetch_d1": EngineConfig(use_kernel=True, dedup=True, prefetch=True,
+                                                 pipeline_depth=1),
+        "kernel_dedup_prefetch_d2": EngineConfig(use_kernel=True, dedup=True, prefetch=True,
+                                                 pipeline_depth=2),
         "table_d1": EngineConfig(use_kernel=False, pipeline_depth=1),
     }
     counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
     torch.cuda.reset_peak_memory_stats()
-    reports, outputs, route_launches = {}, {}, {}
+    reports, outputs, route_launches, hits = {}, {}, {}, {}
     for label, cfg in routes.items():
         # Counts set to 0 just before each route and read just after it;
         # the run is MAIN_BATCHES batches plus one warmup batch.
@@ -376,10 +702,12 @@ def main_path_phase(eng) -> dict:
         ).all():
             raise AssertionError(f"{label}: logits of shape {out.shape}, finite={np.isfinite(out).all()}")
         outputs[label] = out
+        hits[label] = (rep.adj_hits, rep.adj_lookups, rep.feat_hits, rep.feat_lookups)
         reports[label] = dict(rep.summary(), wall_s=wall)
-        log(f"  {label:16s} sample {rep.sample_seconds:.4f} s  feature {rep.feature_seconds:.4f} s  "
-            f"compute {rep.compute_seconds:.4f} s  total {rep.total_seconds:.4f} s  "
-            f"adj hit {rep.adj_hit_rate:.4f}  feat hit {rep.feat_hit_rate:.4f}  "
+        log(f"  {label:24s} sample {rep.sample_seconds:.4f} s  prefetch {rep.prefetch_seconds:.4f} s  "
+            f"feature {rep.feature_seconds:.4f} s  compute {rep.compute_seconds:.4f} s  "
+            f"total {rep.total_seconds:.4f} s  adj hit {rep.adj_hit_rate:.4f}  "
+            f"feat hit {rep.feat_hit_rate:.4f}  prefetched_rows {rep.prefetched_rows}  "
             f"(run incl. warmup {wall:.2f} s)")
     launches = {fn.__name__: sum(r[fn.__name__] for r in route_launches.values()) for fn in counters}
     per_batch = {name: max(r[name] for r in route_launches.values()) / (MAIN_BATCHES + 1)
@@ -392,7 +720,15 @@ def main_path_phase(eng) -> dict:
     for label, out in outputs.items():
         if not np.array_equal(out, first):
             raise AssertionError(f"logits of {label} differ from kernel_d2")
-    log(f"  logits identical across {sorted(outputs)}")
+        if hits[label] != hits["kernel_d2"]:
+            raise AssertionError(f"hit counts of {label} {hits[label]} differ from kernel_d2's "
+                                 f"{hits['kernel_d2']}")
+    for label in routes:
+        if ("prefetch" in label) != (reports[label]["prefetch"] and
+                                     reports[label].get("prefetched_rows", 0) > 0):
+            raise AssertionError(f"{label}: prefetch {reports[label]['prefetch']}, "
+                                 f"prefetched_rows {reports[label].get('prefetched_rows')}")
+    log(f"  logits and hit counts identical across {sorted(outputs)}")
     if launches["cached_gather"] == 0 or launches["cached_gather_blocks"] == 0:
         raise AssertionError(f"a main-path kernel was never launched: {launches}")
     return {"reports": reports, "launches": launches, "route_launches": route_launches,
@@ -400,24 +736,32 @@ def main_path_phase(eng) -> dict:
 
 
 def cli_phase() -> dict:
-    phase("6. CLI")
+    phase("9. CLI")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.infer_gnn", "--use-kernel", "--max-batches", "2"],
+        [sys.executable, "-m", "repro_torch.launch.infer_gnn", "--use-kernel", "--prefetch",
+         "--max-batches", "2"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:
         raise RuntimeError(f"CLI failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     rep = json.loads(proc.stdout)
-    if rep["device"] != "cuda:0" or rep["batches"] != 2:
+    if rep["device"] != "cuda:0" or rep["batches"] != 2 or not rep["prefetch"]:
         raise AssertionError(f"unexpected CLI report: {rep}")
-    log(f"  infer_gnn --use-kernel --max-batches 2: ok in {time.perf_counter() - t0:.1f} s, "
-        f"feat hit {rep['feat_hit_rate']:.4f}, total {rep['total_s']:.4f} s")
+    log(f"  infer_gnn --use-kernel --prefetch --max-batches 2: ok in "
+        f"{time.perf_counter() - t0:.1f} s, feat hit {rep['feat_hit_rate']:.4f}, "
+        f"prefetched_rows {rep['prefetched_rows']}, total {rep['total_s']:.4f} s")
     return rep
 
 
 def main() -> int:
+    # torch.compile (flex_attention's library time) keeps its caches under
+    # the checkout's build/ and compiles in this process, starting no pool.
+    for var, value in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "torchinductor"),
+                       ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
+                       ("TORCHINDUCTOR_COMPILE_THREADS", 1)):
+        os.environ.setdefault(var, str(value))
     if os.environ.get("PYTHONHASHSEED") != "0":
         # graph/datasets.py seeds each graph with hash(name), which Python
         # salts per process: with a fixed hash seed every run builds the
@@ -430,7 +774,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if not (SRC / "repro_torch" / "csrc" / "cached_gather.cu").is_file():
+    if not all((SRC / "repro_torch" / "csrc" / f"{n}.cu").is_file()
+               for n in ("cached_gather", "seg_agg", "flash_attention")):
         print(f"chip_smoke: no repro_torch sources under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
@@ -443,6 +788,12 @@ def main() -> int:
     feature_stage = feature_stage_phase(eng, inputs[100])
     del inputs
     torch.cuda.empty_cache()
+    peaks = card_peaks(device["nvidia_smi"])
+    seg_row, seg_err = seg_agg_phase(peaks[1])
+    att_rows, att_err = attention_phase(peaks)
+    torch.cuda.empty_cache()
+    ops_launches = ops_path_phase()
+    torch.cuda.empty_cache()
     main_path = main_path_phase(eng)
     cli = cli_phase()
 
@@ -451,15 +802,31 @@ def main() -> int:
         if row["main"]:
             name = row["kernel"]
             kernels.append({
-                "name": name, "route": "cuda", "source": "src/repro_torch/csrc/cached_gather.cu",
+                "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": main_path["launches"][name],
                 "max_abs_err": max_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": row["library_ms"],
             })
+    prefill = att_rows["prefill"]
+    kernels += [
+        {"name": "seg_agg", "route": "cuda", "source": SOURCES["seg_agg"],
+         "replaces": REPLACES["seg_agg"], "launches": ops_launches["seg_agg"],
+         "max_abs_err": seg_err, "ms": seg_row["ms"], "plain_ms": seg_row["plain_ms"],
+         "bound_ms": seg_row["bound_ms"], "bound_by": "bytes",
+         "library_ms": seg_row["library_ms"]},
+        # library_ms: flex_attention with the same softcap and mask
+        # (scaled_dot_product_attention without softcap is in chip_smoke.json).
+        {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
+         "replaces": REPLACES["flash_attention"], "launches": ops_launches["flash_attention"],
+         "max_abs_err": att_err, "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
+         "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
+         "library_ms": prefill["library_ms"]},
+    ]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
-        "feature_stage": feature_stage, "main_path": main_path, "cli": cli, "kernels": kernels,
+        "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
+        "ops_launches": ops_launches, "main_path": main_path, "cli": cli, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     log(f"done in {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")

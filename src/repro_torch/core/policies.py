@@ -47,6 +47,7 @@ class PreparedPipeline:
     presample: PresampleStats | None = None
     # Default execution knobs for runs against this pipeline (overridable
     # per run; outputs and hit accounting are knob-invariant):
+    prefetch: bool = False  # stage missed host rows onto the device before the gather
     use_kernel: bool = False  # route gathers through the CUDA cached_gather kernels
     gather_buffers: int = 2  # validated for parity with the reference; no effect
     dedup: bool = False  # gather/model on sorted-unique frontiers only
@@ -176,23 +177,22 @@ def prepare(policy: str, dataset: SyntheticGraphDataset, **kw) -> PreparedPipeli
     """Dispatch to a policy's ``prepare_*`` on ``device`` (CUDA unless
     ``device="cpu"``).
 
-    Execution knobs (``use_kernel``, ``gather_buffers``, ``dedup``) are
-    policy-independent: they are recorded on the returned pipeline as the
-    defaults every run resolves against, without changing what gets
-    cached.  ``prefetch`` is not ported yet and raises when set."""
+    Execution knobs (``prefetch``, ``use_kernel``, ``gather_buffers``,
+    ``dedup``) are policy-independent: they are recorded on the returned
+    pipeline as the defaults every run resolves against, without changing
+    what gets cached."""
     if policy in NOT_PORTED:
         raise NotImplementedError(
             f"policy {policy!r} is not ported yet (ROADMAP.md, A-item 12)"
         )
     if policy not in POLICIES:
         raise KeyError(f"unknown policy {policy!r}; have {sorted(POLICIES)}")
-    if kw.pop("prefetch", False):
-        raise NotImplementedError("prefetch is not ported yet (ROADMAP.md, A-item 10)")
     if kw.get("pipeline_depth") == "auto":
         # "auto" sizes the RUN-time executor window; presampling stays
         # serial (Eq. 1's stage-time ratio assumes synchronized stages).
         kw["pipeline_depth"] = 1
     exec_kw = {
+        "prefetch": bool(kw.pop("prefetch", False)),
         "use_kernel": bool(kw.pop("use_kernel", False)),
         "gather_buffers": int(kw.pop("gather_buffers", 2)),
         "dedup": bool(kw.pop("dedup", False)),

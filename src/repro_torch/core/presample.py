@@ -1,10 +1,19 @@
 """Pre-sampling workload profiler (paper §IV-A/B).
 
-Runs ``n`` mini-batches through the *uncached* pipeline (the table route
-of a plain feature store), measuring per-batch sampling and
+Runs ``n`` mini-batches through the *uncached* pipeline (a plain feature
+store: every row a miss), measuring per-batch sampling and
 feature-loading wall time (the Eq. 1 inputs) and accumulating node /
 adjacency-element visit counts on the device (the cache-filling inputs).
 The paper shows hit rates stabilize at ~8 pre-sampling batches (Fig. 11).
+
+On a CUDA device the feature stage gathers through the kernel route: the
+``cached_gather`` kernel reads the all-miss frontier's rows in place from
+the pinned host table over UVA, which is where the paper's presampler
+reads them and where the reference's presampler gathers (on its device).
+The table route would instead gather the rows on the host CPU, a cost no
+served batch on the kernel route pays.  On the CPU the route is the plain
+version.  Gathers are copies, so the counts do not depend on the route;
+only the timed feature stage, and with it Eq. 1's split, does.
 
 Batches run through the same staged executor as inference
 (:mod:`repro_torch.runtime.pipeline`).  ``pipeline_depth=1`` (the default)
@@ -82,6 +91,7 @@ def run_presampling(
     ``torch.Generator`` on the device seeded with ``seed``."""
     g = device_graph(dataset.graph, device=device)
     store = plain_feature_store(dataset.features, device=device)
+    use_kernel = store.hot_table.is_cuda  # the kernel route on a card
 
     def seeds_of(i: int) -> torch.Tensor:
         return torch.from_numpy(_batch_seeds(dataset.test_idx, batch_size, i)).to(device)
@@ -90,7 +100,7 @@ def run_presampling(
     # measures steady-state work, not first-use setup.
     warm_gen = torch.Generator(device=device).manual_seed(seed)
     wblock = sample_blocks(g, seeds_of(0), tuple(fanouts), generator=warm_gen)
-    block_until_ready(store.gather(wblock.input_nodes)[0])
+    block_until_ready(store.gather(wblock.input_nodes, use_kernel=use_kernel)[0])
 
     gen = torch.Generator(device=device).manual_seed(seed)
     node_counts = torch.zeros(dataset.num_nodes, dtype=torch.int32, device=device)
@@ -101,7 +111,7 @@ def run_presampling(
         return sample_blocks(g, ctx.payload, tuple(fanouts), generator=gen)
 
     def feature_stage(ctx):
-        feats, _ = store.gather(ctx.outputs["sample"].input_nodes)
+        feats, _ = store.gather(ctx.outputs["sample"].input_nodes, use_kernel=use_kernel)
         return feats
 
     def on_retire(ctx):

@@ -9,21 +9,69 @@ moved over the slow path.
 Where the tables live on a CUDA device: ``host_table`` in pinned host
 memory — the paper's UVA miss path — and ``hot_table`` and
 ``position_map`` on the device.  On the CPU all three are plain tensors.
+
+``prefetch_misses`` stages a batch's missed rows onto the device ahead of
+its gather: packed on the host into pinned memory, copied on a side CUDA
+stream, and waited for (through a CUDA event) by the stream that gathers.
+Its first step reads the batch's ids back to the host, and that read
+waits for everything queued on the compute stream, the previous batch's
+forward included: the staging cannot overlap device work while the miss
+search runs on the host (a device-side miss search is queued in
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import typing
 
 import numpy as np
 import torch
 
+from repro_torch.graph.sampling import pow2_bucket
+
 __all__ = [
     "FeatureStore",
+    "PrefetchedMisses",
     "build_feature_cache",
     "plain_feature_store",
     "select_hot_rows",
 ]
+
+# One shared worker for the host-side miss-row pack: the row copy into the
+# pinned staging buffer is the heavy part of prefetch staging, and a single
+# worker keeps the packs ordered while the calling thread builds the index
+# arrays and issues THEIR copies.
+_PACK_POOL = concurrent.futures.ThreadPoolExecutor(
+    max_workers=1, thread_name_prefix="dci-miss-pack"
+)
+
+
+class PrefetchedMisses(typing.NamedTuple):
+    """Missed host rows staged onto the device ahead of their gather.
+
+    ``rows`` is the device buffer: the full ``[S, F]`` row set when every
+    row missed (``idx is None``), else a ``[P, F]`` power-of-two padded
+    pack of just the miss rows (zero pad rows).  ``idx`` holds each packed
+    row's position in the batch (pad entries point one past the end);
+    ``pack_pos`` is the inverse map — each batch row's slot in the pack (0
+    for hit rows, whose miss source is never read) — so the kernel route
+    addresses the pack directly.  ``num_miss`` is the unpadded miss count.
+
+    On a CUDA device the three tensors were copied on a side stream:
+    ``ready`` is the event recorded after the copies, which the gathering
+    stream waits on, and ``staging`` keeps the pinned host buffers they
+    were copied from alive for as long as this object lives (the batch's
+    context holds it until the batch retires, after the copies are
+    done).  On the CPU ``ready`` is ``None`` and nothing is staged."""
+
+    rows: torch.Tensor
+    idx: torch.Tensor | None
+    pack_pos: torch.Tensor | None
+    num_miss: int
+    ready: "torch.cuda.Event | None" = None
+    staging: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +115,98 @@ class FeatureStore:
             object.__setattr__(self, "_pad_node_id", cached)
         return cached
 
+    def _copy_stream(self) -> torch.cuda.Stream:
+        """The side stream the prefetch copies run on (one per store)."""
+        stream = getattr(self, "_side_stream", None)
+        if stream is None:
+            stream = torch.cuda.Stream(self.hot_table.device)
+            object.__setattr__(self, "_side_stream", stream)
+        return stream
+
+    def prefetch_misses(
+        self,
+        nodes: torch.Tensor | np.ndarray,
+        *,
+        num_live: int | None = None,
+        injector=None,
+    ) -> PrefetchedMisses:
+        """Stage the missed host rows for a batch onto the device.
+
+        The miss rows are found on the host (``nodes`` read back once
+        when it is a device tensor, then looked up in the position-map
+        mirror), packed into a pinned staging buffer padded to a
+        power-of-two bucket, and copied ``non_blocking`` on a side CUDA
+        stream.  The read of ``nodes`` waits for the compute stream's
+        queued work, so neither the host pack nor the copy overlaps it.
+        The returned ``ready`` event marks the copies' end; the gather
+        that consumes the pack makes its stream wait on it.
+
+        ``num_live`` marks a live prefix: positions at and beyond it are
+        padding (the deduped frontier's pow2 bucket tail) whose gathered
+        values are never read, so their misses are not staged.  The
+        consuming gather still covers all of ``nodes``; pad miss rows read
+        pack slot 0, which only lands in unread pad output rows.
+
+        The row pack runs on a worker thread while the calling thread
+        builds ``idx``/``pack_pos``; the call joins before it returns.
+        ``injector`` (fault injection) is not ported yet and raises."""
+        if injector is not None:
+            raise NotImplementedError("fault injection is not ported yet (ROADMAP.md, A-item 16)")
+        if isinstance(nodes, torch.Tensor):
+            nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
+        nodes = np.asarray(nodes)
+        live = nodes if num_live is None else nodes[:num_live]
+        miss = np.nonzero(self.position_np()[live] < 0)[0].astype(np.int32)
+        on_cuda = self.hot_table.is_cuda
+        f = self.feat_dim
+
+        def pack(ids: np.ndarray, n_rows: int) -> torch.Tensor:
+            rows = torch.empty((n_rows, f), dtype=self.host_table.dtype, pin_memory=on_cuda)
+            torch.index_select(
+                self.host_table, 0, torch.from_numpy(ids.astype(np.int64)), out=rows[: ids.size]
+            )
+            rows[ids.size :].zero_()
+            return rows
+
+        if miss.size == nodes.size:
+            # Every row missed (e.g. no cache): the staged buffer IS the
+            # whole row set — no pack, no pad, no inverse map.
+            rows, idx, pack_pos = pack(nodes, nodes.size), None, None
+        else:
+            bucket = pow2_bucket(miss.size, nodes.size)
+            rows_future = _PACK_POOL.submit(pack, nodes[miss], bucket)
+            idx = torch.full((bucket,), nodes.size, dtype=torch.int32, pin_memory=on_cuda)
+            idx.numpy()[: miss.size] = miss  # pad → one past the end (never read)
+            pack_pos = torch.zeros(nodes.size, dtype=torch.int32, pin_memory=on_cuda)
+            pack_pos.numpy()[miss] = np.arange(miss.size, dtype=np.int32)  # hits → slot 0
+            rows = rows_future.result()
+        if not on_cuda:
+            return PrefetchedMisses(rows, idx, pack_pos, int(miss.size))
+        staging = (rows, idx, pack_pos)
+        side = self._copy_stream()
+        with torch.cuda.stream(side):
+            # Allocated on the side stream, so the allocator never hands
+            # these blocks to side-stream work before the compute stream's
+            # uses of them (recorded below) are done.
+            rows, idx, pack_pos = (
+                None if t is None else t.to(self.hot_table.device, non_blocking=True)
+                for t in staging
+            )
+            ready = torch.cuda.Event()
+            ready.record(side)
+        compute = torch.cuda.current_stream(self.hot_table.device)
+        for t in (rows, idx, pack_pos):
+            if t is not None:
+                t.record_stream(compute)
+        return PrefetchedMisses(rows, idx, pack_pos, int(miss.size), ready, staging)
+
     def gather(
         self,
         indices: torch.Tensor,
         *,
         use_kernel: bool = False,
         gather_buffers: int = 2,
+        prefetched: PrefetchedMisses | None = None,
         row_block: int | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Two-source gather. Returns ``(features[S, F], hit[S])``.
@@ -80,31 +214,54 @@ class FeatureStore:
         ``use_kernel=True`` routes through the CUDA ``cached_gather``
         kernel (its plain version on the CPU); ``row_block > 1`` selects
         the row-block variant, whose contiguous runs suit sorted deduped
-        frontiers.  ``use_kernel=False`` is the table route.  Every route
-        gives the same bits."""
+        frontiers.  ``use_kernel=False`` is the table route.
+
+        ``prefetched`` (from :meth:`prefetch_misses`) replaces the host
+        table as the miss source: the kernels read the device pack
+        through ``pack_pos`` (the all-miss row set row by row), and the
+        table route scatters the pack over the hot-table gather.  The
+        stream waits for the pack's copy first.  The hit mask comes from
+        ``position_map`` either way.  Every route gives the same bits."""
         indices = indices.to(torch.int32)
         pos = self.position_map[indices.to(torch.int64)]
         hit = pos >= 0
+        if prefetched is not None and prefetched.ready is not None:
+            torch.cuda.current_stream(self.hot_table.device).wait_event(prefetched.ready)
         if use_kernel:
             from repro_torch.kernels.cached_gather.kernel import (
                 cached_gather,
                 cached_gather_blocks,
             )
 
+            if prefetched is None:
+                host_src, host_idx = self.host_table, indices
+            elif prefetched.idx is None:  # all-miss: the row set is row-aligned
+                host_src = prefetched.rows
+                host_idx = torch.arange(indices.shape[0], dtype=torch.int32, device=indices.device)
+            else:
+                host_src, host_idx = prefetched.rows, prefetched.pack_pos
             if row_block is not None and row_block > 1:
                 feats = cached_gather_blocks(
                     self.hot_table,
-                    self.host_table,
-                    indices,
+                    host_src,
+                    host_idx,
                     pos,
                     row_block=row_block,
                     gather_buffers=gather_buffers,
                 )
             else:
                 feats = cached_gather(
-                    self.hot_table, self.host_table, indices, pos, gather_buffers=gather_buffers
+                    self.hot_table, host_src, host_idx, pos, gather_buffers=gather_buffers
                 )
             return feats, hit
+        if prefetched is not None:
+            cached = self.hot_table[pos.clamp(0, self.hot_table.shape[0] - 1).to(torch.int64)]
+            if prefetched.idx is None:  # every row missed: straight select
+                return torch.where(hit[:, None], cached, prefetched.rows), hit
+            # The misses overwrite their rows of the hot gather.
+            m = prefetched.num_miss
+            at = prefetched.idx[:m].to(torch.int64)
+            return cached.index_copy_(0, at, prefetched.rows[:m]), hit
         return self._gather_table(indices, pos, hit), hit
 
     def _gather_table(

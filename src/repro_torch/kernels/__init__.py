@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels of the port (H100, sm_90a), one directory each.
+
+Each directory keeps the reference's three files: ``kernel.py`` (the
+wrappers, which launch the kernel on CUDA tensors and compute the plain
+version on CPU tensors), ``ref.py`` (the plain torch version and oracle)
+and ``ops.py`` (the public op with the reference's arguments).  Sources
+live in ``src/repro_torch/csrc/`` and are built at first use
+(``kernels/_build.py``); nothing here needs ``nvcc`` at import time.
+
+  cached_gather/    DCI's two-source feature-row gather (hit -> hot table,
+                    miss -> host table or the prefetched miss pack)
+  seg_agg/          padded-neighbourhood aggregation (GNN sum/mean)
+  flash_attention/  blocked online-softmax attention with causal,
+                    sliding-window and logit-softcap variants
+"""
+
+from repro_torch.kernels.cached_gather.ops import cached_feature_gather
+from repro_torch.kernels.flash_attention.ops import multi_head_attention
+from repro_torch.kernels.seg_agg.ops import aggregate_neighbors
+
+__all__ = ["cached_feature_gather", "multi_head_attention", "aggregate_neighbors"]

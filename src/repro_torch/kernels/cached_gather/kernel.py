@@ -261,20 +261,31 @@ def cached_gather_blocks(
     but a deduped (sorted unique) frontier, whose hit slots and miss ids
     run consecutively, collapses most blocks to one contiguous span copy.
     ``row_block == 1`` routes to :func:`cached_gather`, as the reference
-    does."""
+    does.
+
+    A hot table shorter than ``row_block`` is zero-padded to ``row_block``
+    rows first, on both routes, as the reference's row-block kernel pads
+    it (``kernel.py:377-380``): a slot in ``[H, row_block)`` then reads a
+    zero row, and larger slots clamp into the padded table.  Host ids
+    clamp into the real host table, padded or not."""
     _validate(hot_table, host_table, indices, positions)
     if gather_buffers < 1:
         raise ValueError(f"gather_buffers must be >= 1, got {gather_buffers}")
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
-    if not _on_cuda(hot_table, host_table, indices, positions):
-        return cached_gather_ref(hot_table, host_table, indices, positions)
+    on_cuda = _on_cuda(hot_table, host_table, indices, positions)
     if indices.shape[0] == 0:
         return hot_table.new_empty((0, hot_table.shape[1]))
     if row_block == 1:
         return cached_gather(
             hot_table, host_table, indices, positions, gather_buffers=gather_buffers
         )
+    if hot_table.shape[0] < row_block:
+        hot_table = torch.cat(
+            [hot_table, hot_table.new_zeros((row_block - hot_table.shape[0], hot_table.shape[1]))]
+        )
+    if not on_cuda:
+        return cached_gather_ref(hot_table, host_table, indices, positions)
     idx, pos, out, row_bytes, host_ptr, vec, stream = _launch_args(
         hot_table, host_table, indices, positions
     )

@@ -10,21 +10,23 @@ Batch execution is delegated to the staged executor in
 :mod:`repro_torch.runtime.pipeline`: ``pipeline_depth=1`` is the paper's
 serial loop (a device sync after every stage), ``depth>1`` keeps that many
 batches in flight so batch *i+1*'s sampling/gather overlap batch *i*'s
-forward on the CUDA stream.  Three execution knobs — ``use_kernel`` (route
-gathers through the CUDA ``cached_gather`` kernels), ``gather_buffers``
-(validated, no effect on the card) and ``dedup`` (sort-and-unique each
-input frontier on the device and gather/model one row per DISTINCT node,
-expanding through the inverse map) — default from the prepared pipeline.
-Outputs, hit counts and batch order are identical under every knob
-combination.
+forward on the CUDA stream.  Four execution knobs — ``prefetch`` (stage
+each batch's missed host rows onto the device in a stage of their own,
+between sample and feature, copied on a side CUDA stream), ``use_kernel``
+(route gathers through the CUDA ``cached_gather`` kernels),
+``gather_buffers`` (validated, no effect on the card) and ``dedup``
+(sort-and-unique each input frontier on the device and
+gather/prefetch/model one row per DISTINCT node, expanding through the
+inverse map) — default from the prepared pipeline.  Outputs, hit counts
+and batch order are identical under every knob combination.
 
 The RNG seam: slot draws come from one ``torch.Generator`` per stream,
 seeded ``seed + 1``, unless :meth:`GNNInferenceEngine.run` is given the
 draws (one ``r`` tensor per batch and layer) — which is how the tests
 replay the JAX reference's draws.
 
-Not ported yet (each raises when asked for): prefetch, online refresh,
-fault injection / retry / degraded mode, RAIN reuse, layer-wise mode.
+Not ported yet (each raises when asked for): online refresh, fault
+injection / retry / degraded mode, RAIN reuse, layer-wise mode.
 """
 
 from __future__ import annotations
@@ -97,6 +99,11 @@ class InferenceReport:
     feat_lookups: int
     feat_row_bytes: int
     pipeline_depth: int = 1
+    # The prefetch stage (off by default) books the host->device staging
+    # of the missed rows; ``prefetched_rows`` counts the rows staged.
+    prefetch: bool = False
+    prefetch_seconds: float = 0.0
+    prefetched_rows: int = 0
     # Unique-frontier accounting: ``unique_rows`` sums each batch's
     # distinct input nodes, ``gathered_rows`` the rows the feature stage
     # actually pulled (the pow2 gather buckets under dedup, every
@@ -111,7 +118,12 @@ class InferenceReport:
 
     @property
     def total_seconds(self) -> float:
-        return self.sample_seconds + self.feature_seconds + self.compute_seconds
+        return (
+            self.sample_seconds
+            + self.prefetch_seconds
+            + self.feature_seconds
+            + self.compute_seconds
+        )
 
     @property
     def adj_hit_rate(self) -> float:
@@ -148,8 +160,10 @@ class InferenceReport:
             "device": self.device,
             "batches": self.num_batches,
             "pipeline_depth": self.pipeline_depth,
+            "prefetch": self.prefetch,
             "dedup": self.dedup,
             "sample_s": self.sample_seconds,
+            "prefetch_s": self.prefetch_seconds,
             "feature_s": self.feature_seconds,
             "compute_s": self.compute_seconds,
             "total_s": self.total_seconds,
@@ -160,6 +174,8 @@ class InferenceReport:
         }
         if self.config is not None:
             out["config"] = self.config.to_dict()
+        if self.prefetch:
+            out["prefetched_rows"] = self.prefetched_rows
         if self.dedup:
             out["unique_rows"] = self.unique_rows
             out["gathered_rows"] = self.gathered_rows
@@ -184,6 +200,7 @@ class StreamRuntime:
         generator: torch.Generator | None = None,
         draws: Sequence[Sequence[torch.Tensor]] | None = None,
         collect_outputs: bool = False,
+        prefetch: bool | None = None,
         use_kernel: bool | None = None,
         gather_buffers: int | None = None,
         dedup: bool | None = None,
@@ -195,6 +212,7 @@ class StreamRuntime:
         self.fanouts = tuple(fanouts)
         self.generator = generator
         self.draws = draws
+        self.prefetch = pipe.prefetch if prefetch is None else prefetch
         self.use_kernel = pipe.use_kernel if use_kernel is None else use_kernel
         self.gather_buffers = pipe.gather_buffers if gather_buffers is None else gather_buffers
         self.dedup = pipe.dedup if dedup is None else dedup
@@ -202,6 +220,7 @@ class StreamRuntime:
         self.adj_lookups = 0
         self.feat_hits = 0
         self.feat_lookups = 0
+        self.prefetched_rows = 0
         self.unique_rows = 0  # sum of per-batch distinct input nodes (dedup)
         self.gathered_rows = 0  # rows the feature stage actually gathered
         self.outputs: list[np.ndarray] | None = [] if collect_outputs else None
@@ -239,10 +258,35 @@ class StreamRuntime:
         ctx.outputs["_dedup"] = view
         return view
 
+    def prefetch_stage(self, ctx):
+        """Stage the batch's MISSED host rows onto the device.
+
+        Sits between ``sample`` and ``feature``: the copy runs on a side
+        stream, and the feature stage then reads misses from the staged
+        pack.  The stage first reads the batch's ids back to the host,
+        which waits for the compute stream's queued work, so even at
+        ``depth > 1`` the staging does not overlap the previous batch's
+        forward.  The hit mask (and all accounting) still comes from
+        ``position_map``, so hit counts are identical with prefetch on or
+        off.  Under ``dedup`` only the batch's DISTINCT missed rows are
+        staged (the live prefix of the unique bucket)."""
+        store = self.pipe.caches.store
+        if self.dedup:
+            _, nu, _, uids = ctx.outputs["_dedup"]
+            staged = store.prefetch_misses(uids, num_live=nu)
+        else:
+            staged = store.prefetch_misses(ctx.outputs["sample"][0].input_nodes)
+        self.prefetched_rows += staged.num_miss
+        return staged
+
     def feature(self, ctx):
         block = ctx.outputs["sample"][0]
         store = self.pipe.caches.store
-        gather_kw = dict(use_kernel=self.use_kernel, gather_buffers=self.gather_buffers)
+        gather_kw = dict(
+            use_kernel=self.use_kernel,
+            gather_buffers=self.gather_buffers,
+            prefetched=ctx.outputs.get("prefetch"),
+        )
         if self.dedup:
             # Gather each distinct row once (sorted ids → the row-block
             # kernel's contiguous runs on the kernel route); the per-visit
@@ -278,18 +322,28 @@ class StreamRuntime:
             self.outputs.append(ctx.outputs["compute"].cpu().numpy())
 
 
-def stream_stages(runtime_of) -> list[Stage]:
-    """The sample → feature → compute pipeline over :class:`StreamRuntime`s.
+def stream_stages(runtime_of, *, prefetch: bool = False) -> list[Stage]:
+    """The sample → [prefetch] → feature → compute pipeline over
+    :class:`StreamRuntime`s.
 
     ``runtime_of(ctx)`` resolves the runtime a batch belongs to.  Sync
     values are what each stage leaves in flight (tuples of tensors) — what
-    the serial clock blocks on and the overlap clock drains."""
+    the serial clock blocks on and the overlap clock drains.
+    ``prefetch=True`` inserts the miss-row staging stage between sample
+    and feature; off, the executor drops the ``None`` placeholder."""
     return [
         Stage(
             "sample",
             lambda c: runtime_of(c).sample(c),
             lambda c: (c.outputs["sample"][0].frontiers[-1], c.outputs["sample"][1]),
         ),
+        Stage(
+            "prefetch",
+            lambda c: runtime_of(c).prefetch_stage(c),
+            lambda c: c.outputs["prefetch"],
+        )
+        if prefetch
+        else None,
         Stage(
             "feature",
             lambda c: runtime_of(c).feature(c),
@@ -409,17 +463,23 @@ class GNNInferenceEngine:
         self,
         seeds: np.ndarray,
         *,
+        prefetch: bool | None = None,
         use_kernel: bool | None = None,
         gather_buffers: int | None = None,
         dedup: bool | None = None,
     ) -> None:
         """Run one batch through the route the run will use, outside any
         timed region: the first kernel launch builds and loads the CUDA
-        library, and cuBLAS sets up on its first product.  Draws come from
-        a generator of its own, so the run's sequence is untouched."""
+        library, cuBLAS sets up on its first product, and with prefetch
+        the side stream, the pinned-buffer pool and the pack worker start.
+        Draws come from a generator of its own, so the run's sequence is
+        untouched.  (The reference also warms every pow2 pack bucket,
+        because each compiles its own gather program; eager torch compiles
+        nothing per shape.)"""
         if self.pipeline is None:
             raise RuntimeError("call prepare() first")
         pipe = self.pipeline
+        prefetch = pipe.prefetch if prefetch is None else prefetch
         use_kernel = pipe.use_kernel if use_kernel is None else use_kernel
         gather_buffers = pipe.gather_buffers if gather_buffers is None else gather_buffers
         dedup = pipe.dedup if dedup is None else dedup
@@ -439,9 +499,15 @@ class GNNInferenceEngine:
             inverse = wblock.dedup.inverse
             row_block = ROW_BLOCK if use_kernel else None
         else:
+            nu = None
             gather_ids, inverse, row_block = wblock.input_nodes, None, None
+        prefetched = store.prefetch_misses(gather_ids, num_live=nu) if prefetch else None
         wfeats, _ = store.gather(
-            gather_ids, use_kernel=use_kernel, gather_buffers=gather_buffers, row_block=row_block
+            gather_ids,
+            use_kernel=use_kernel,
+            gather_buffers=gather_buffers,
+            prefetched=prefetched,
+            row_block=row_block,
         )
         with torch.inference_mode():
             block_until_ready(self.model(wfeats, inverse_index=inverse))
@@ -513,8 +579,6 @@ class GNNInferenceEngine:
         cfg = config if config is not None else EngineConfig()
         if cfg.mode != "sampling":
             raise NotImplementedError("layer-wise mode is not ported yet (ROADMAP.md, A-item 13)")
-        if cfg.prefetch:
-            raise NotImplementedError("prefetch is not ported yet (ROADMAP.md, A-item 10)")
         cfg.refresh_config()  # raises unless refresh is off
         tracer = resolve_tracer(tracer)
         if batches is None:
@@ -526,6 +590,7 @@ class GNNInferenceEngine:
         if warmup and batches:
             self.warmup(
                 batches[0],
+                prefetch=cfg.prefetch,
                 use_kernel=cfg.use_kernel,
                 gather_buffers=cfg.gather_buffers,
                 dedup=cfg.dedup,
@@ -541,13 +606,14 @@ class GNNInferenceEngine:
             ),
             draws=draws,
             collect_outputs=collect_outputs,
+            prefetch=cfg.prefetch,
             use_kernel=cfg.use_kernel,
             gather_buffers=cfg.gather_buffers,
             dedup=cfg.dedup,
         )
         clock = StageClock(overlap=depth > 1)
         executor = PipelinedExecutor(
-            stream_stages(lambda c: rt),
+            stream_stages(lambda c: rt, prefetch=rt.prefetch),
             depth=depth,
             clock=clock,
             on_retire=rt.record,
@@ -555,8 +621,11 @@ class GNNInferenceEngine:
         )
         executor.run(self._seeds(b) for b in batches)
         self.last_outputs = rt.outputs
-        resolved = cfg.replace(prefetch=False).resolved(pipe, pipeline_depth=depth).replace(
-            use_kernel=rt.use_kernel, gather_buffers=rt.gather_buffers, dedup=rt.dedup
+        resolved = cfg.resolved(pipe, pipeline_depth=depth).replace(
+            prefetch=rt.prefetch,
+            use_kernel=rt.use_kernel,
+            gather_buffers=rt.gather_buffers,
+            dedup=rt.dedup,
         )
         return InferenceReport(
             policy=pipe.name,
@@ -571,6 +640,9 @@ class GNNInferenceEngine:
             feat_lookups=rt.feat_lookups,
             feat_row_bytes=self.dataset.feature_nbytes_per_row(),
             pipeline_depth=depth,
+            prefetch=rt.prefetch,
+            prefetch_seconds=clock.total("prefetch"),
+            prefetched_rows=rt.prefetched_rows,
             dedup=rt.dedup,
             unique_rows=rt.unique_rows,
             gathered_rows=rt.gathered_rows,

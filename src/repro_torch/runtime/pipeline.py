@@ -33,9 +33,9 @@ Because a batch's stages dispatch back-to-back while *earlier* batches are
 still in flight, any stage inserted between two others is a prefetch hook:
 a stage placed between ``sample`` and ``feature`` runs for batch ``i+1``
 while batch ``i``'s compute occupies the device — the boundary the
-feature-miss prefetch stage of the reference engine uses to stage missed
-host rows ahead of the gather that consumes them (not ported yet).  Optional stages are passed as ``None`` entries in ``stages`` and
-dropped, so call sites can write ``[sample, prefetch if on else None,
+feature-miss prefetch stage (``StreamRuntime.prefetch_stage``) uses to
+stage missed host rows ahead of the gather that consumes them.  Optional
+stages are passed as ``None`` entries in ``stages`` and dropped, so call sites can write ``[sample, prefetch if on else None,
 feature, compute]`` without changing the executor schedule when the knob
 is off.
 

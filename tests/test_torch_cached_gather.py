@@ -107,6 +107,23 @@ def test_gather_out_of_range_ids_and_slots_clamp(kind):
     np.testing.assert_array_equal(port, ref)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+def test_blocks_pad_a_hot_table_shorter_than_a_row_block(dtype):
+    """With H = 4 < row_block, the reference's row-block kernel zero-pads
+    the hot table to 8 rows before clamping slots: slot 5 reads a zero pad
+    row and slot 100 clamps to pad row 7.  The port's row-block gather
+    pads the same way; the per-row gathers keep clamping to row H - 1."""
+    pos = np.array([0, 1, 2, 3, 5, 100, -1, 2, 5], np.int32)
+    idx = np.array([3, 0, 9, 1, 4, 2, 7, 40, 6], np.int32)
+    hot, host, idx, pos = _case(4, 10, 24, 9, dtype, idx=idx, pos=pos)
+    port, ref = _both("blocks", hot, host, idx, pos)
+    np.testing.assert_array_equal(port, ref)
+    assert not port[[4, 5, 8]].any() and port[[0, 1, 2, 3]].any(axis=1).all()
+    db, db_ref = _both("db", hot, host, idx, pos)
+    np.testing.assert_array_equal(db, db_ref)
+    np.testing.assert_array_equal(db[5], db[3])
+
+
 @pytest.mark.parametrize("gather_buffers", [1, 2, 3, 4])
 @pytest.mark.parametrize("kind", ["db", "blocks"])
 def test_gather_buffer_counts_do_not_change_output(kind, gather_buffers):

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.config import EngineConfig as JaxEngineConfig
 from repro.graph.sampling import sample_blocks as jax_sample_blocks
 from repro.runtime.gnn_engine import GNNInferenceEngine as JaxEngine
 from repro_torch.core.allocation import CacheAllocation
@@ -104,23 +105,51 @@ def test_slice_matches_reference_engine(slice_pair):
         )
 
 
+@pytest.mark.parametrize("prefetch", [False, True])
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("dedup", [False, True])
 @pytest.mark.parametrize("depth", [1, 2])
-def test_port_outputs_identical_across_knobs(slice_pair, use_kernel, dedup, depth):
+def test_port_outputs_identical_across_knobs(slice_pair, use_kernel, dedup, depth, prefetch):
     _, ref_rep, eng, draws = slice_pair
     base = eng.run(max_batches=BATCHES, collect_outputs=True, draws=draws)
     base_out = eng.last_outputs
-    cfg = EngineConfig(use_kernel=use_kernel, dedup=dedup, pipeline_depth=depth)
+    cfg = EngineConfig(use_kernel=use_kernel, dedup=dedup, pipeline_depth=depth,
+                       prefetch=prefetch)
     rep = eng.run(config=cfg, max_batches=BATCHES, collect_outputs=True, draws=draws)
     for a, b in zip(eng.last_outputs, base_out):
         np.testing.assert_array_equal(a, b)
     assert (rep.feat_hits, rep.adj_hits) == (ref_rep.feat_hits, ref_rep.adj_hits)
     assert rep.pipeline_depth == depth and rep.dedup == dedup
-    assert rep.config.use_kernel == use_kernel
+    assert rep.config.use_kernel == use_kernel and rep.config.prefetch == rep.prefetch == prefetch
+    assert (rep.prefetched_rows > 0) == prefetch and (rep.prefetch_seconds > 0) == prefetch
+    if prefetch and not dedup:
+        assert rep.prefetched_rows == rep.feat_lookups - rep.feat_hits
     if dedup:
         assert rep.unique_rows <= rep.gathered_rows <= 2 * rep.unique_rows
         assert rep.duplication_factor > 1.0
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_prefetch_matches_reference_engine(slice_pair, dedup):
+    """Prefetch on in both engines: the same rows staged, the same hit
+    counts, logits within 1e-4."""
+    ref, _, eng, draws = slice_pair
+    ref_rep = ref.run(config=JaxEngineConfig(prefetch=True, dedup=dedup), max_batches=BATCHES,
+                      collect_outputs=True)
+    rep = eng.run(config=EngineConfig(prefetch=True, dedup=dedup, use_kernel=True),
+                  max_batches=BATCHES, collect_outputs=True, draws=draws)
+    assert ref_rep.prefetch and rep.prefetch
+    assert rep.prefetched_rows == ref_rep.prefetched_rows > 0
+    assert (rep.adj_hits, rep.adj_lookups) == (ref_rep.adj_hits, ref_rep.adj_lookups)
+    assert (rep.feat_hits, rep.feat_lookups) == (ref_rep.feat_hits, ref_rep.feat_lookups)
+    for got, want in zip(eng.last_outputs, ref.last_outputs):
+        torch.testing.assert_close(
+            torch.from_numpy(got), torch.from_numpy(np.array(want)), rtol=1e-4, atol=1e-4
+        )
+    summary = rep.summary()
+    assert summary["prefetch"] and summary["prefetched_rows"] == rep.prefetched_rows
+    assert rep.total_seconds == pytest.approx(
+        rep.sample_seconds + rep.prefetch_seconds + rep.feature_seconds + rep.compute_seconds)
 
 
 def test_generator_run_is_deterministic_and_prepare_runs_on_cpu(small_dataset):
@@ -157,13 +186,12 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             prepare(policy, ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        prepare("dci", ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
-                device="cpu", prefetch=True)
+    pipe = prepare("dci", ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
+                   device="cpu", prefetch=True)
+    assert pipe.prefetch  # ported: recorded as the runs' default
     eng = GNNInferenceEngine(ds, fanouts=FANOUTS, batch_size=32, device="cpu")
     eng.prepare("dgl")
-    for cfg in (EngineConfig(mode="layerwise"), EngineConfig(prefetch=True),
-                EngineConfig(refresh_mode="interval")):
+    for cfg in (EngineConfig(mode="layerwise"), EngineConfig(refresh_mode="interval")):
         with pytest.raises(NotImplementedError):
             eng.run(config=cfg, max_batches=1)
 
@@ -207,9 +235,10 @@ def test_cli_runs_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.infer_gnn", "--device", "cpu",
          "--dataset", "reddit", "--scale", "0.001", "--fanouts", "3,2", "--batch-size", "16",
          "--presample", "1", "--max-batches", "2", "--use-kernel", "--dedup",
-         "--pipeline-depth", "2"],
+         "--pipeline-depth", "2", "--prefetch", "--cache-mb", "0.05"],
         capture_output=True, text=True, check=True, timeout=120,
         env=dict(os.environ, OMP_NUM_THREADS="1"),
     )
     rep = json.loads(out.stdout)
-    assert rep["device"] == "cpu" and rep["batches"] == 2 and rep["dedup"]
+    assert rep["device"] == "cpu" and rep["batches"] == 2 and rep["dedup"] and rep["prefetch"]
+    assert rep["prefetched_rows"] > 0

@@ -259,6 +259,76 @@ def test_feature_store_gather_equal(both, use_kernel, row_block):
     assert not _np(ph).any() and plain.pad_node_id() == -1
 
 
+@pytest.mark.parametrize("num_live", [None, 150])
+@pytest.mark.parametrize("use_kernel,row_block", [(False, None), (True, None), (True, 8)])
+def test_prefetch_misses_and_prefetched_gather_equal(both, use_kernel, row_block, num_live):
+    """The staged pack (rows, batch positions, inverse map, miss count)
+    equals the reference's, and a gather that reads misses from it gives
+    the reference's rows and hit mask on every route — with a cache, and
+    all-miss without one."""
+    jds, tds = both
+    counts = np.random.default_rng(1).poisson(1.0, jds.num_nodes).astype(np.int32)
+    ids = np.random.default_rng(3).integers(0, jds.num_nodes, 300).astype(np.int32)
+    stores = [
+        (jfeatures.build_feature_cache(jds.features, counts, 200_000),
+         tfeatures.build_feature_cache(tds.features, counts, 200_000, device=CPU)),
+        (jfeatures.build_feature_cache(jds.features, counts, 0),
+         tfeatures.plain_feature_store(tds.features, device=CPU)),
+    ]
+    for js, ts in stores:
+        jp = js.prefetch_misses(ids, num_live=num_live)
+        for nodes in (torch.from_numpy(ids), ids):
+            tp = ts.prefetch_misses(nodes, num_live=num_live)
+            assert tp.num_miss == jp.num_miss > 0 and tp.ready is None
+            np.testing.assert_array_equal(_np(tp.rows), np.asarray(jp.rows))
+            for field in ("idx", "pack_pos"):
+                want = getattr(jp, field)
+                got = getattr(tp, field)
+                assert (got is None) == (want is None)
+                if want is not None:
+                    np.testing.assert_array_equal(_np(got), np.asarray(want))
+        jf, jh = js.gather(jnp.asarray(ids), prefetched=jp)
+        tf, th = ts.gather(torch.from_numpy(ids), use_kernel=use_kernel, row_block=row_block,
+                           prefetched=tp)
+        live = slice(None, num_live)
+        np.testing.assert_array_equal(_np(tf)[live], np.asarray(jf)[live])
+        np.testing.assert_array_equal(_np(tf)[live], tds.features[ids][live])
+        np.testing.assert_array_equal(_np(th), np.asarray(jh))
+    with pytest.raises(NotImplementedError, match="fault injection"):
+        ts.prefetch_misses(ids, injector=object())
+
+
+def test_presample_counts_equal_across_gather_routes(both, monkeypatch):
+    """Presampling's kernel route (the one it takes on a card) and table
+    route count the same visits: gathers are copies, so only the timed
+    feature stage depends on the route."""
+    from repro_torch.core.presample import run_presampling
+    from repro_torch.graph.features import FeatureStore
+
+    _, tds = both
+    kw = dict(fanouts=FANOUTS, batch_size=64, n_batches=2, seed=5, device=CPU)
+    gather, routes = FeatureStore.gather, []
+
+    def run(force):
+        def routed(self, indices, *, use_kernel=False, **gkw):
+            routes.append(use_kernel)
+            return gather(self, indices, use_kernel=use_kernel if force is None else force, **gkw)
+
+        routes.clear()
+        monkeypatch.setattr(FeatureStore, "gather", routed)
+        return run_presampling(tds, **kw)
+
+    default = run(None)
+    assert routes and not any(routes)  # on the CPU presampling takes the table route
+    table, kernel = run(False), run(True)
+    for stats in (kernel, default):
+        np.testing.assert_array_equal(stats.node_counts, table.node_counts)
+        np.testing.assert_array_equal(stats.edge_counts, table.edge_counts)
+        assert (stats.peak_workload_bytes, stats.n_batches) == (table.peak_workload_bytes, 2)
+        assert len(stats.sample_times) == len(stats.feature_times) == 2
+    assert table.node_counts.sum() > 0 and table.edge_counts.sum() > 0
+
+
 def test_dual_cache_build_equal_from_reference_stats(both):
     """The reference's PresampleStats and CacheAllocation fill the port's
     caches byte for byte."""

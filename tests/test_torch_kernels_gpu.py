@@ -1,4 +1,4 @@
-"""The CUDA gather kernels against ``ref.py`` on the card (marked ``gpu``).
+"""The CUDA kernels against their ``ref.py`` on the card (marked ``gpu``).
 
 Every test takes the ``cuda`` fixture, which skips when no card is present
 — decided inside the fixture, never at import time, so every worker
@@ -6,7 +6,10 @@ collects the same tests.  On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Copies are exact, so every comparison is ``torch.equal``.
+Gathers are copies, so their comparisons are ``torch.equal``; the
+aggregation and attention kernels are held at the tolerances their CPU
+parity tests state (float32 1e-6 and 3e-4, bfloat16 2e-2 and 5e-2), with
+TF32 off for the plain version's float32 products.
 """
 
 import numpy as np
@@ -18,6 +21,10 @@ from repro_torch.graph.datasets import load_dataset
 from repro_torch.kernels.cached_gather import kernel as tk
 from repro_torch.kernels.cached_gather.ops import cached_feature_gather
 from repro_torch.kernels.cached_gather.ref import cached_gather_ref
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
+from repro_torch.kernels.seg_agg import kernel as sa
+from repro_torch.kernels.seg_agg.ref import seg_agg_ref
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
 
 pytestmark = pytest.mark.gpu
@@ -33,6 +40,7 @@ KERNELS = {
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run with -m gpu on the H100")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -118,19 +126,153 @@ def test_wrappers_refuse_what_they_cannot_read(cuda):
 
 
 def test_engine_routes_agree_on_the_card(cuda):
-    """Kernel, kernel+dedup and table routes give identical logits, and
-    the main path launches kernels #1 and #2."""
+    """Kernel, kernel+dedup and table routes, each with prefetch off and
+    on, give identical logits and hit counts, and the main path launches
+    kernels #1 and #2."""
     ds = load_dataset("ogbn-products", scale=0.002, seed=0)
     eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
     eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
-    outs = []
+    outs, hits = [], set()
     n_db, n_blk = tk.cached_gather.launches, tk.cached_gather_blocks.launches
-    for cfg in (EngineConfig(use_kernel=True, pipeline_depth=2),
-                EngineConfig(use_kernel=True, dedup=True, pipeline_depth=2),
-                EngineConfig(use_kernel=False, pipeline_depth=1)):
-        rep = eng.run(config=cfg, max_batches=3, collect_outputs=True)
-        outs.append(np.stack(eng.last_outputs))
-        assert 0 < rep.feat_hit_rate < 1 and 0 < rep.adj_hit_rate < 1
+    for prefetch in (False, True):
+        for cfg in (EngineConfig(use_kernel=True, pipeline_depth=2),
+                    EngineConfig(use_kernel=True, dedup=True, pipeline_depth=2),
+                    EngineConfig(use_kernel=True, dedup=True, pipeline_depth=1),
+                    EngineConfig(use_kernel=False, pipeline_depth=1)):
+            rep = eng.run(config=cfg.replace(prefetch=prefetch), max_batches=3,
+                          collect_outputs=True)
+            outs.append(np.stack(eng.last_outputs))
+            hits.add((rep.feat_hits, rep.adj_hits))
+            assert 0 < rep.feat_hit_rate < 1 and 0 < rep.adj_hit_rate < 1
+            assert (rep.prefetched_rows > 0) == prefetch
     assert tk.cached_gather.launches > n_db and tk.cached_gather_blocks.launches > n_blk
-    np.testing.assert_array_equal(outs[0], outs[1])
-    np.testing.assert_array_equal(outs[0], outs[2])
+    assert len(hits) == 1
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+
+
+@pytest.mark.parametrize("cached_rows", [0, 40, 2000])
+def test_gathers_read_a_prefetched_pack(cuda, cached_rows):
+    """#1 and #2 reading the device miss pack through ``pack_pos`` (or the
+    all-miss row set) give ref.py's rows from the full pinned host table."""
+    from repro_torch.graph.features import build_feature_cache, plain_feature_store
+
+    gen = np.random.default_rng(cached_rows)
+    feats = gen.standard_normal((3000, 100)).astype(np.float32)
+    counts = gen.poisson(1.0, 3000).astype(np.int32)
+    store = (build_feature_cache(feats, counts, cached_rows * 400, device=cuda) if cached_rows
+             else plain_feature_store(feats, device=cuda))
+    ids = torch.from_numpy(np.sort(gen.integers(0, 3000, 5000)).astype(np.int32)).to(cuda)
+    uids = torch.unique(ids).to(torch.int32)
+    for gather_ids, row_block in ((ids, None), (uids, tk.ROW_BLOCK)):
+        staged = store.prefetch_misses(gather_ids)
+        assert staged.rows.is_cuda and staged.ready is not None
+        assert (staged.idx is None) == (cached_rows == 0)
+        for use_kernel in (True, False):
+            got, hit = store.gather(gather_ids, use_kernel=use_kernel, prefetched=staged,
+                                    row_block=row_block)
+            want, want_hit = store.gather(gather_ids, use_kernel=True, row_block=row_block)
+            assert torch.equal(got, want) and torch.equal(hit, want_hit)
+            pos = store.position_map[gather_ids.to(torch.int64)]
+            assert torch.equal(got, cached_gather_ref(store.hot_table, store.host_table,
+                                                      gather_ids, pos))
+
+
+SEG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+ATT_TOL = {torch.float32: 3e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("s,fo,f", [(32, 5, 128), (7, 2, 602), (100, 15, 64), (1, 1, 1),
+                                    (4099, 10, 100), (33, 3, 7)])
+def test_seg_agg_matches_ref(cuda, dtype, mode, s, fo, f):
+    x = torch.randn((s, fo, f), generator=torch.Generator().manual_seed(s + f)).to(dtype).to(cuda)
+    before = sa.seg_agg.launches
+    got = sa.seg_agg(x, mode=mode)
+    torch.cuda.synchronize()
+    assert sa.seg_agg.launches == before + 1 and got.dtype == dtype and got.shape == (s, f)
+    torch.testing.assert_close(got, seg_agg_ref(x, mode=mode), rtol=SEG_TOL[dtype],
+                               atol=SEG_TOL[dtype])
+
+
+def test_seg_agg_odd_pitch_empty_and_refusals(cuda):
+    x = torch.randn((9, 4, 101), device=cuda)[:, :, 1:]  # a non-contiguous view
+    torch.testing.assert_close(sa.seg_agg(x), x.sum(1), rtol=1e-6, atol=1e-6)
+    assert sa.seg_agg(torch.empty((0, 3, 8), device=cuda)).shape == (0, 8)
+    with pytest.raises(ValueError):
+        sa.seg_agg(x.half())
+    with pytest.raises(ValueError, match="use_kernel"):
+        from repro_torch.kernels import aggregate_neighbors
+
+        aggregate_neighbors(x)
+
+
+def _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=gen).to(dtype).to(cuda)
+    k = torch.randn((b, hkv, sk, d), generator=gen).to(dtype).to(cuda)
+    v = torch.randn((b, hkv, sk, d), generator=gen).to(dtype).to(cuda)
+    return q, k, v
+
+
+def _check_attention(q, k, v, **kw):
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1 and got.dtype == q.dtype
+    hq = q.shape[1]
+    want = attention_ref(q, expand_kv(k, hq), expand_kv(v, hq), **kw)
+    tol = ATT_TOL[q.dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "sq,sk,d,causal,window,cap",
+    [
+        (128, 128, 64, True, None, None),
+        (256, 256, 128, True, None, 50.0),
+        (200, 200, 64, True, 64, None),
+        (128, 128, 64, False, None, None),
+        (96, 160, 64, False, None, None),
+        (64, 64, 128, True, 16, 30.0),
+        (1, 1024, 64, False, None, None),
+        (1, 1024, 128, True, None, None),
+        (200, 64, 32, False, 64, None),
+    ],
+)
+def test_flash_attention_matches_ref(cuda, dtype, sq, sk, d, causal, window, cap):
+    q, k, v = _qkv(cuda, 1, 1, 1, sq, sk, d, dtype, seed=sq + sk)
+    got = _check_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    if sq == 200 and sk == 64:  # rows from 127 on keep no key
+        assert not got[0, 0, 127:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 48, 64, 128, 192, 256, 80])
+def test_flash_attention_head_dims_and_gqa(cuda, dtype, d):
+    q, k, v = _qkv(cuda, 2, 8, 2, 77, 130, d, dtype, seed=d)
+    _check_attention(q, k, v, causal=True, window=50, softcap=30.0)
+    _check_attention(q, k, v, causal=False)
+
+
+def test_flash_attention_edges_and_refusals(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 1, 5, 0, 64, torch.float32)
+    assert not fa.flash_attention(q, k, v, causal=False).any()  # no key at all
+    q, k, v = _qkv(cuda, 1, 2, 2, 0, 8, 64, torch.float32)
+    assert fa.flash_attention(q, k, v).shape == (1, 2, 0, 64)
+    q, k, v = _qkv(cuda, 1, 2, 2, 8, 8, 300, torch.float32)
+    with pytest.raises(ValueError, match="D=300"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="use_kernel"):
+        from repro_torch.kernels import multi_head_attention
+
+        multi_head_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 4, 2, 70, 70, 64, torch.float32)
+    two_d = fa.flash_attention_2d(q[0, 1], k[0, 0], v[0, 0], causal=True, softcap=20.0)
+    torch.testing.assert_close(two_d, fa.flash_attention(q, k, v, causal=True, softcap=20.0)[0, 1],
+                               rtol=0, atol=0)
