@@ -25,12 +25,17 @@ whose errors is caught:
    pinned on the CPU and on the card, plus all-hit, all-miss, empty and
    out-of-range cases; each kernel timed with CUDA events beside
    ``ref.py``, ``torch.index_select`` on a device-resident table, and the
-   bytes bound (PCIe at the card's published Gen5 x16 peak); then the
-   device work of one batch's feature stage on the plain and the dedup
-   kernel route, with the dedup sort and #2's classification alone, and
-   the prefetch staging of one batch's misses (host clock, with its
-   device→host id read alone), whose pack #1 and #2 must read to the
-   same rows;
+   bytes bound (PCIe at the card's published Gen5 x16 peak); then #1 and
+   #2 split into their HBM side (every row forced to hit, beside
+   ``index_select`` on the hot table) and their PCIe side (every row
+   missing, beside the miss bytes over the measured pinned rate), #1 on
+   the miss rows alone (every occurrence against each distinct row
+   once), and #2's in-kernel block modes against ``classify_blocks``;
+   then the device work of one batch's feature stage on the plain and
+   the dedup kernel route, with the dedup sort and the former wrapper
+   classification alone, and the prefetch staging of one batch's misses
+   (host clock, with its device→host id read alone), whose pack #1 and
+   #2 must read to the same rows;
 5. B4, ``seg_agg``: against ``ref.py`` in float32 and bfloat16 on the
    edge shapes of tests/test_kernels.py and at the main path's
    first-layer shape ``[180224, 5, 100]`` (1,081,344 frontier rows
@@ -308,8 +313,11 @@ def bound_ms(hot, idx, pos, pinned: bool, h2d: float) -> float:
 def feature_stage_phase(eng, case) -> dict:
     """CUDA-event times of the device work each feature route adds, on
     one batch's frontier (the prepared ogbn-products store): the dedup
-    sort (run in the sample stage), #2's block classification, and the
-    whole feature stage of the plain and the dedup kernel route."""
+    sort (run in the sample stage), ``classify_blocks`` (the torch ops
+    the former wrapper of #2 ran before each launch; the kernel now
+    classifies itself, so this is off the path and timed as the former
+    wrapper's cost), and the whole feature stage of the plain and the
+    dedup kernel route."""
     import torch
 
     from repro_torch.graph.sampling import dedup_frontier
@@ -333,8 +341,8 @@ def feature_stage_phase(eng, case) -> dict:
         "feature_kernel_ms": cuda_ms(lambda: store.gather(ids, use_kernel=True), reps=5),
         "feature_kernel_dedup_ms": cuda_ms(dedup_feature, reps=5),
     }
-    log("  feature-stage device work, one batch (CUDA events, mean of 5): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log("  feature-stage device work, one batch (CUDA events, mean of 5; classify_ms is the former "
+        "wrapper cost, off the path): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
     # Prefetch staging of the same batch's misses, on the host clock (it
     # reads the ids back, packs on the host and copies on a side stream),
     # and the device->host id read alone.  #1 and #2 must read the pack
@@ -662,6 +670,77 @@ def kernel_phase(inputs, h2d) -> tuple[dict, list]:
     return max_err, rows
 
 
+def split_phase(case, h2d) -> dict:
+    """Phase 4, continued: what holds #1 and #2 back at the main shape (the
+    prepared ogbn-products store, F = 100, pinned host).  Each kernel on
+    its main input (#1 the frontier, #2 the dedup bucket) as the path
+    gives it, with every row forced to hit (slot = id mod H: the HBM side;
+    #1 then computes exactly ``torch.index_select(hot, 0, slot)``, timed
+    as its same-function library time) and with every row missing (slot
+    -1: the PCIe side, beside its bytes over the measured pinned copy
+    rate).  Then #1 on the frontier's miss rows alone, every occurrence
+    against each distinct row once: per-row times that agree would mean
+    the L2 keeps sysmem lines.  Then #2's in-kernel classification against
+    ``classify_blocks``.  Every output equals ref.py."""
+    import torch
+
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+    from repro_torch.kernels.cached_gather.ref import cached_gather_ref
+
+    hot, host = case["hot"], case["host"]
+    n_hot, row = hot.shape[0], hot.shape[1] * hot.element_size()
+
+    def checked_ms(fn, h, idx, pos, reps=5):
+        if not torch.equal(fn(hot, h, idx, pos), cached_gather_ref(hot, h, idx, pos)):
+            raise AssertionError(f"{fn.__name__} disagrees with ref.py in the split phase")
+        return cuda_ms(lambda: fn(hot, h, idx, pos), reps=reps)
+
+    rows = []
+    for name, fn, (ik, pk) in (("cached_gather", tk.cached_gather, ("ids", "pos")),
+                               ("cached_gather_blocks", tk.cached_gather_blocks, ("uids", "upos"))):
+        idx = case[ik]
+        for variant, pos in (("main", case[pk]),
+                             ("all-hit", (idx % n_hot).to(torch.int32)),
+                             ("all-miss", torch.full_like(idx, -1))):
+            hit = pos >= 0
+            miss_rows = int((~hit).sum())
+            r = dict(kernel=name, variant=variant, rows=int(idx.shape[0]), miss_rows=miss_rows,
+                     ms=checked_ms(fn, host, idx, pos, reps=3 if variant == "all-miss" else 5),
+                     bound_ms=bound_ms(hot, idx, pos, True, h2d),
+                     miss_bytes_over_h2d_ms=1e3 * miss_rows * row / h2d)
+            if variant == "all-hit":
+                r["library_ms"] = cuda_ms(lambda: torch.index_select(hot, 0, pos), reps=5)
+            rows.append(r)
+            log(f"  {name:22s} {variant:8s} rows={r['rows']:8d} miss={miss_rows:8d} kernel "
+                f"{r['ms']:8.3f} ms  bound {r['bound_ms']:7.3f} ms  miss bytes / pinned rate "
+                f"{r['miss_bytes_over_h2d_ms']:8.3f} ms"
+                + (f"  index_select(hot) {r['library_ms']:.3f} ms" if "library_ms" in r else ""))
+    occ = case["ids"][case["pos"] < 0]
+    dist = torch.unique(occ).to(torch.int32)
+    miss = {}
+    for label, idx in (("occurrences", occ), ("distinct", dist)):
+        ms = checked_ms(tk.cached_gather, host, idx, torch.full_like(idx, -1))
+        miss[label] = dict(rows=int(idx.shape[0]), ms=ms, bytes_per_s=idx.shape[0] * row / (ms / 1e3),
+                           us_per_krow=1e3 * ms / (idx.shape[0] / 1e3))
+    log(f"  #1 on the miss rows alone: every occurrence {miss['occurrences']['rows']} rows "
+        f"{miss['occurrences']['ms']:.3f} ms ({miss['occurrences']['bytes_per_s'] / 1e9:.2f} GB/s), "
+        f"each distinct row once {miss['distinct']['rows']} rows {miss['distinct']['ms']:.3f} ms "
+        f"({miss['distinct']['bytes_per_s'] / 1e9:.2f} GB/s); pinned copy {h2d / 1e9:.2f} GB/s")
+    # #2's classification, done in the kernel, against the plain rule.
+    uids, upos = case["uids"], case["upos"]
+    want_mode, _ = tk.classify_blocks(uids, upos, n_hot, host.shape[0], ROW_BLOCK)
+    modes = torch.full_like(want_mode, -1)
+    tk._launch_blocks(hot, host, uids, upos, ROW_BLOCK, modes=modes)
+    torch.cuda.synchronize()
+    if not torch.equal(modes, want_mode):
+        raise AssertionError("kernel #2's in-kernel block modes differ from classify_blocks")
+    counts = [int((want_mode == m).sum()) for m in range(3)]
+    log(f"  #2 in-kernel modes equal classify_blocks: {counts[0]} per-row blocks, {counts[1]} hot "
+        f"spans, {counts[2]} host spans of {len(want_mode)}")
+    return {"rows": rows, "miss_only": miss, "block_modes": counts}
+
+
 def main_path_phase(eng) -> dict:
     import numpy as np
     import torch
@@ -785,6 +864,7 @@ def main() -> int:
     ds, eng, setup = setup_phase()
     inputs = kernel_inputs(eng)
     max_err, rows = kernel_phase(inputs, build["h2d_bytes_per_s"])
+    split = split_phase(inputs[100], build["h2d_bytes_per_s"])
     feature_stage = feature_stage_phase(eng, inputs[100])
     del inputs
     torch.cuda.empty_cache()
@@ -825,7 +905,7 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
-        "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
+        "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "cli": cli, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

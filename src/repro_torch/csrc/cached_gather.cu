@@ -18,16 +18,40 @@
 // memory (3.35 TB/s), miss rows from the host table, which is pinned host
 // memory read in place over UVA (PCIe Gen5 x16, 64 GB/s each way) or a
 // device tensor, and every output row is written once to device memory.
-// With any real miss share the PCIe reads dominate.  The simple design
-// answers that by copying each row from its winning source only (the
-// select kernel reads both and is the baseline), with the widest vector
-// the pitch allows, one warp per row so that many independent row reads
-// are in flight at once.  The TPU kernels' gather_buffers VMEM-slot
-// schedule has no counterpart here: the wrapper validates the argument and
-// the output does not depend on it.  TMA and tuning are later work.
+// A miss row is a UVA read at PCIe latency, several times an HBM read's.
+//
+// #1 and #2 answer that with latency hiding, not with fewer bytes: each
+// copies every row from its winning source only, and both run a grid
+// sized to the card (CTAs per SM from the occupancy API times the SM
+// count, computed by the wrapper) whose warps walk the work with a
+// stride.  Each lane issues kUnroll loads before it stores any, one load
+// instruction per row of up to 32 vectors (copy_rows), so a warp keeps
+// eight rows in flight.  When the host table is pinned host memory and
+// rows are up to 32 vectors long, #1's warps are specialised: two of
+// each CTA's eight copy only the miss rows and the other six only the
+// hit rows, so a miss row's PCIe latency stalls a miss warp and never a
+// hit warp (on the products frontier, warps that each took both kinds
+// took about as long as its all-hit and miss-only gathers together).
+// Otherwise every warp takes both kinds: from a device host table (the
+// prefetch pack) both sides are HBM reads and two warps of eight would
+// only wait, and on the reddit-sized table (2,408-byte rows, three rows
+// in four missing) the split measured slower.
+// #2 classifies its row blocks itself, with warp votes, by the
+// reference's rule (kernel.py:391-407), and copies a block that is one
+// consecutive all-hit or all-miss run as one span.  What is left bounds
+// them: on the pinned route the PCIe reads of the miss rows take most of
+// the time, and #1 reads a miss row once per occurrence; only the dedup
+// route (#2 on unique ids) reads each once.
+//
+// Both stage rows through registers.  A ring of shared-memory slots
+// filled and drained by bulk copies (cp.async.bulk with an mbarrier per
+// stage), which read pinned host memory over UVA too, measured no faster
+// for #2's spans on the H100 and slower from a device host table
+// (PERF.md), so it is not kept.  The select kernel (#3) keeps its first
+// design: it is the baseline.
 //
 // Row offsets are computed in 64 bits: ogbn-papers100m at full size holds
-// 14.2 G feature elements.
+// 14.2 G feature elements, and reddit's main-shape output 2.6 GB.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -40,14 +64,11 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;  // 8 warps per CTA
 constexpr int kWarpsPerCta = kThreads / kWarp;
+constexpr int kUnroll = 8;  // vectors each lane loads before it stores any
+constexpr unsigned kFull = 0xffffffffu;
 
-template <typename V>
-__device__ __forceinline__ void copy_vecs(char* __restrict__ dst, const char* __restrict__ src,
-                                          int64_t n_vec, int64_t first, int64_t stride) {
-  const V* s = reinterpret_cast<const V*>(src);
-  V* d = reinterpret_cast<V*>(dst);
-#pragma unroll 4
-  for (int64_t k = first; k < n_vec; k += stride) d[k] = s[k];
+__device__ __forceinline__ int64_t clamp_row(int64_t v, int64_t n) {
+  return max(int64_t(0), min(v, n - 1));
 }
 
 __device__ __forceinline__ const char* winning_row(const char* hot, const char* host,
@@ -56,52 +77,178 @@ __device__ __forceinline__ const char* winning_row(const char* hot, const char* 
                                                    int64_t n_host) {
   const int64_t p = pos[row];
   if (p >= 0) return hot + min(p, n_hot - 1) * row_bytes;
-  const int64_t i = idx[row];
-  return host + max(int64_t(0), min(i, n_host - 1)) * row_bytes;
+  return host + clamp_row(idx[row], n_host) * row_bytes;
 }
 
-// #1: one warp per output row, copying from the winning source only.
+// The warp copies `rows` (<= 32) rows of n_vec vectors each: lane r <
+// rows holds row r's source in `src` and its output address in `dst`.
+// One load instruction never splits a row it does not fill: a row of up
+// to 32 vectors is read whole by one instruction (32 / n_vec rows per
+// instruction: a 400-byte row takes 25 lanes and leaves 7 idle), which
+// measured faster over PCIe than lanes laid across row boundaries, and a
+// longer row is read by all 32 lanes, one row at a time.  Each lane
+// issues kUnroll loads before it stores any.  A span of consecutive
+// source rows is one row of rows * n_vec vectors.
+template <typename V>
+__device__ __forceinline__ void copy_rows(const char* src, char* dst, int rows, int n_vec,
+                                          int lane) {
+  const auto my_src = reinterpret_cast<unsigned long long>(src);
+  const auto my_dst = reinterpret_cast<unsigned long long>(dst);
+  if (n_vec <= kWarp) {
+    const int per_load = kWarp / n_vec;
+    const int sub = lane / n_vec;  // this lane's row within one instruction
+    const int col = lane % n_vec;
+    for (int r0 = 0; r0 < rows; r0 += per_load * kUnroll) {
+      V buf[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r0 + u * per_load + sub;
+        const auto row = reinterpret_cast<const V*>(__shfl_sync(kFull, my_src, min(r, rows - 1)));
+        if (sub < per_load && r < rows) buf[u] = row[col];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r0 + u * per_load + sub;
+        const auto out = reinterpret_cast<V*>(__shfl_sync(kFull, my_dst, min(r, rows - 1)));
+        if (sub < per_load && r < rows) out[col] = buf[u];
+      }
+    }
+    return;
+  }
+  for (int r = 0; r < rows; ++r) {
+    const auto row = reinterpret_cast<const V*>(__shfl_sync(kFull, my_src, r));
+    const auto out = reinterpret_cast<V*>(__shfl_sync(kFull, my_dst, r));
+    for (int k0 = 0; k0 < n_vec; k0 += kWarp * kUnroll) {
+      V buf[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u * kWarp + lane;
+        if (k < n_vec) buf[u] = row[k];
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int k = k0 + u * kWarp + lane;
+        if (k < n_vec) out[k] = buf[u];
+      }
+    }
+  }
+}
+
+// #1, warp-specialised for short rows read from pinned host memory: in
+// each CTA, miss_warps warps (the wrapper passes 2 then, else 0) copy only
+// the miss rows and the others only the hit rows, so a miss row's PCIe
+// latency stalls a miss warp and never the hit warps' HBM copies.  Hit
+// warps walk chunks of rows_per_warp rows (the wrapper sizes it so that a
+// warp keeps kUnroll load instructions in flight), miss warps chunks of
+// 32 rows; each side strides over the frontier, compacts its chunk's rows
+// of its own kind into the first lanes (a ballot, then __fns), and copies
+// them.  With miss_warps = 0 every warp copies both kinds.  The ids and
+// slots of a warp's next chunk are loaded before the current chunk's
+// rows, so their latency overlaps the copy.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
     gather_rows_kernel(const char* __restrict__ hot, const char* __restrict__ host,
                        const int32_t* __restrict__ idx, const int32_t* __restrict__ pos,
                        char* __restrict__ out, int64_t s, int64_t row_bytes, int64_t n_hot,
-                       int64_t n_host) {
-  const int64_t row = int64_t(blockIdx.x) * kWarpsPerCta + (threadIdx.x / kWarp);
-  if (row >= s) return;
-  const char* src = winning_row(hot, host, idx, pos, row, row_bytes, n_hot, n_host);
-  copy_vecs<V>(out + row * row_bytes, src, row_bytes / int64_t(sizeof(V)), threadIdx.x % kWarp,
-               kWarp);
+                       int64_t n_host, int rows_per_warp, int miss_warps) {
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int hit_warps = kWarpsPerCta - miss_warps;
+  const bool miss_side = warp >= hit_warps;
+  const bool both = miss_warps == 0;
+  const bool reads_idx = both || miss_side;  // hit-only warps never read a host id
+  const int chunk = miss_side ? kWarp : rows_per_warp;
+  const int side = miss_side ? miss_warps : hit_warps;
+  const int n_vec = int(row_bytes / int64_t(sizeof(V)));
+  const int64_t n_chunks = (s + chunk - 1) / chunk;
+  const int64_t stride = int64_t(gridDim.x) * side;
+  int64_t c = int64_t(blockIdx.x) * side + (miss_side ? warp - hit_warps : warp);
+  int32_t p = 0, i = 0;  // this lane's row of chunk c
+  bool live = c < n_chunks && lane < chunk && c * chunk + lane < s;
+  if (live) {
+    p = pos[c * chunk + lane];
+    if (reads_idx) i = idx[c * chunk + lane];
+  }
+  for (; c < n_chunks; c += stride) {
+    const int64_t row = c * chunk + lane;
+    const bool mine = live && (both || (p < 0) == miss_side);
+    const char* src = p >= 0 ? hot + min(int64_t(p), n_hot - 1) * row_bytes
+                             : host + clamp_row(i, n_host) * row_bytes;
+    char* dst = out + row * row_bytes;
+    const int64_t next = (c + stride) * chunk + lane;
+    live = c + stride < n_chunks && lane < chunk && next < s;
+    if (live) {
+      p = pos[next];
+      if (reads_idx) i = idx[next];
+    }
+    const unsigned kind = __ballot_sync(kFull, mine);
+    const int from = lane < __popc(kind) ? int(__fns(kind, 0, lane + 1)) : 0;
+    const auto s_from = __shfl_sync(kFull, reinterpret_cast<unsigned long long>(src), from);
+    const auto d_from = __shfl_sync(kFull, reinterpret_cast<unsigned long long>(dst), from);
+    copy_rows<V>(reinterpret_cast<const char*>(s_from), reinterpret_cast<char*>(d_from),
+                 __popc(kind), n_vec, lane);
+  }
 }
 
-// #2: one CTA per block of row_block output rows.  blk_mode (classified by
-// the wrapper with the reference's rule): 1 = the rows are consecutive hot
-// rows, 2 = consecutive host rows, both copied as ONE contiguous span of
-// n_rows * row_bytes bytes by the whole CTA; 0 = per-row copies, one warp
-// per row.  The ragged last block is masked here (it is always mode 0).
+// #2: each warp takes one block of row_block output rows at a time and
+// strides over the blocks.  It classifies the block with the reference's
+// rule: src = hit ? clamp(pos) : clamp(idx); mode 1 if every row hits and
+// src runs consecutively, 2 if every row misses and src runs
+// consecutively, else 0 (and the ragged last block is 0).  Modes 1 and 2
+// copy the block as one span from src[0]; mode 0 copies row by row.
+// `modes`, when not null, receives each block's mode.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
     gather_blocks_kernel(const char* __restrict__ hot, const char* __restrict__ host,
                          const int32_t* __restrict__ idx, const int32_t* __restrict__ pos,
-                         const int32_t* __restrict__ blk_mode,
-                         const int32_t* __restrict__ blk_start, char* __restrict__ out, int64_t s,
+                         char* __restrict__ out, int32_t* __restrict__ modes, int64_t s,
                          int64_t row_bytes, int64_t n_hot, int64_t n_host, int64_t row_block) {
-  const int64_t b = blockIdx.x;
-  const int64_t row0 = b * row_block;
-  const int64_t n_rows = min(row_block, s - row0);
-  const int mode = blk_mode[b];
-  if (mode != 0) {
-    const char* base = mode == 1 ? hot : host;
-    const char* src = base + int64_t(blk_start[b]) * row_bytes;
-    copy_vecs<V>(out + row0 * row_bytes, src, n_rows * row_bytes / int64_t(sizeof(V)),
-                 threadIdx.x, kThreads);
-    return;
-  }
-  const int64_t n_vec = row_bytes / int64_t(sizeof(V));
-  for (int64_t r = threadIdx.x / kWarp; r < n_rows; r += kWarpsPerCta) {
-    const int64_t row = row0 + r;
-    const char* src = winning_row(hot, host, idx, pos, row, row_bytes, n_hot, n_host);
-    copy_vecs<V>(out + row * row_bytes, src, n_vec, threadIdx.x % kWarp, kWarp);
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int n_vec = int(row_bytes / int64_t(sizeof(V)));
+  const int64_t n_blocks = (s + row_block - 1) / row_block;
+  const int64_t stride = int64_t(gridDim.x) * kWarpsPerCta;
+  for (int64_t b = int64_t(blockIdx.x) * kWarpsPerCta + warp; b < n_blocks; b += stride) {
+    const int64_t row0 = b * row_block;
+    const int n_rows = int(min(row_block, s - row0));
+    bool all_hit = true, all_miss = true, contig = true;
+    int32_t start = 0, last = 0;
+    for (int j0 = 0; j0 < n_rows; j0 += kWarp) {
+      const int j = j0 + lane;
+      const bool valid = j < n_rows;
+      bool hit = false;
+      int32_t src = 0;
+      if (valid) {
+        const int32_t p = pos[row0 + j];
+        hit = p >= 0;
+        src = hit ? int32_t(min(int64_t(p), n_hot - 1)) : int32_t(clamp_row(idx[row0 + j], n_host));
+      }
+      int32_t prev = __shfl_up_sync(kFull, src, 1);
+      if (lane == 0) prev = last;
+      const bool h = __all_sync(kFull, !valid || hit);
+      const bool m = __all_sync(kFull, !valid || !hit);
+      const bool c = __all_sync(kFull, !valid || j == 0 || src == prev + 1);
+      all_hit = all_hit && h;
+      all_miss = all_miss && m;
+      contig = contig && c;
+      if (j0 == 0) start = __shfl_sync(kFull, src, 0);
+      last = __shfl_sync(kFull, src, kWarp - 1);
+    }
+    const int mode = (n_rows == row_block && contig) ? (all_hit ? 1 : (all_miss ? 2 : 0)) : 0;
+    if (modes != nullptr && lane == 0) modes[b] = mode;
+    char* dst = out + row0 * row_bytes;
+    if (mode != 0) {
+      const char* src = (mode == 1 ? hot : host) + int64_t(start) * row_bytes;
+      copy_rows<V>(src, dst, 1, n_rows * n_vec, lane);
+    } else {
+      for (int j0 = 0; j0 < n_rows; j0 += kWarp) {
+        const int rows = min(kWarp, n_rows - j0);
+        const char* src = lane < rows ? winning_row(hot, host, idx, pos, row0 + j0 + lane,
+                                                    row_bytes, n_hot, n_host)
+                                      : nullptr;
+        copy_rows<V>(src, dst + int64_t(j0 + lane) * row_bytes, rows, n_vec, lane);
+      }
+    }
   }
 }
 
@@ -121,10 +268,8 @@ __global__ void __launch_bounds__(kThreads)
   if (row >= s) return;
   const int64_t p = pos[row];
   const int64_t i = idx[row];
-  const V* hs =
-      reinterpret_cast<const V*>(hot + max(int64_t(0), min(p, n_hot - 1)) * row_bytes);
-  const V* ms =
-      reinterpret_cast<const V*>(host + max(int64_t(0), min(i, n_host - 1)) * row_bytes);
+  const V* hs = reinterpret_cast<const V*>(hot + clamp_row(p, n_hot) * row_bytes);
+  const V* ms = reinterpret_cast<const V*>(host + clamp_row(i, n_host) * row_bytes);
   V* d = reinterpret_cast<V*>(out + row * row_bytes);
   const int pick = p >= 0 ? 0 : 1;
   const int64_t n_vec = row_bytes / int64_t(sizeof(V));
@@ -140,50 +285,72 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <template <typename> class Launch, typename... Args>
-int dispatch(int vec_bytes, Args... args) {
-  switch (vec_bytes) {
-    case 16: Launch<uint4>::run(args...); break;
-    case 8: Launch<uint2>::run(args...); break;
-    case 4: Launch<uint32_t>::run(args...); break;
-    case 2: Launch<uint16_t>::run(args...); break;
-    case 1: Launch<uint8_t>::run(args...); break;
-    default: return int(cudaErrorInvalidValue);
+// The kernel a launch of `kind` (0: #1, 1: #2) and vector type V runs.
+template <typename V>
+const void* kernel_of(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(gather_rows_kernel<V>);
+    case 1: return reinterpret_cast<const void*>(gather_blocks_kernel<V>);
+    default: return nullptr;
   }
-  return int(cudaGetLastError());
 }
 
-unsigned int row_grid(int64_t s) { return unsigned((s + kWarpsPerCta - 1) / kWarpsPerCta); }
+const void* kernel_of(int kind, int vec_bytes) {
+  switch (vec_bytes) {
+    case 16: return kernel_of<uint4>(kind);
+    case 8: return kernel_of<uint2>(kind);
+    case 4: return kernel_of<uint32_t>(kind);
+    case 2: return kernel_of<uint16_t>(kind);
+    case 1: return kernel_of<uint8_t>(kind);
+    default: return nullptr;
+  }
+}
+
+template <template <typename> class Launch, typename... Args>
+int dispatch(int vec_bytes, Args... args) {
+  cudaError_t err;
+  switch (vec_bytes) {
+    case 16: err = Launch<uint4>::run(args...); break;
+    case 8: err = Launch<uint2>::run(args...); break;
+    case 4: err = Launch<uint32_t>::run(args...); break;
+    case 2: err = Launch<uint16_t>::run(args...); break;
+    case 1: err = Launch<uint8_t>::run(args...); break;
+    default: return int(cudaErrorInvalidValue);
+  }
+  return int(err != cudaSuccess ? err : cudaGetLastError());
+}
 
 template <typename V>
 struct LaunchRows {
-  static void run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
+  static cudaError_t run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
                   char* out, int64_t s, int64_t row_bytes, int64_t n_hot, int64_t n_host,
-                  cudaStream_t stream) {
-    gather_rows_kernel<V><<<row_grid(s), kThreads, 0, stream>>>(hot, host, idx, pos, out, s,
-                                                                 row_bytes, n_hot, n_host);
-  }
-};
-
-template <typename V>
-struct LaunchSelect {
-  static void run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
-                  char* out, int64_t s, int64_t row_bytes, int64_t n_hot, int64_t n_host,
-                  cudaStream_t stream) {
-    gather_select_kernel<V><<<row_grid(s), kThreads, 0, stream>>>(hot, host, idx, pos, out, s,
-                                                                   row_bytes, n_hot, n_host);
+                  int rows_per_warp, int miss_warps, unsigned grid, cudaStream_t stream) {
+    gather_rows_kernel<V><<<grid, kThreads, 0, stream>>>(hot, host, idx, pos, out, s, row_bytes,
+                                                         n_hot, n_host, rows_per_warp, miss_warps);
+    return cudaSuccess;
   }
 };
 
 template <typename V>
 struct LaunchBlocks {
-  static void run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
-                  const int32_t* blk_mode, const int32_t* blk_start, char* out, int64_t s,
-                  int64_t row_bytes, int64_t n_hot, int64_t n_host, int64_t row_block,
+  static cudaError_t run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
+                  char* out, int32_t* modes, int64_t s, int64_t row_bytes, int64_t n_hot,
+                  int64_t n_host, int64_t row_block, unsigned grid, cudaStream_t stream) {
+    gather_blocks_kernel<V><<<grid, kThreads, 0, stream>>>(hot, host, idx, pos, out, modes, s,
+                                                           row_bytes, n_hot, n_host, row_block);
+    return cudaSuccess;
+  }
+};
+
+template <typename V>
+struct LaunchSelect {
+  static cudaError_t run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
+                  char* out, int64_t s, int64_t row_bytes, int64_t n_hot, int64_t n_host,
                   cudaStream_t stream) {
-    const unsigned int n_blocks = unsigned((s + row_block - 1) / row_block);
-    gather_blocks_kernel<V><<<n_blocks, kThreads, 0, stream>>>(
-        hot, host, idx, pos, blk_mode, blk_start, out, s, row_bytes, n_hot, n_host, row_block);
+    const unsigned grid = unsigned((s + kWarpsPerCta - 1) / kWarpsPerCta);
+    gather_select_kernel<V><<<grid, kThreads, 0, stream>>>(hot, host, idx, pos, out, s,
+                                                           row_bytes, n_hot, n_host);
+    return cudaSuccess;
   }
 };
 
@@ -191,13 +358,26 @@ struct LaunchBlocks {
 
 extern "C" {
 
+// CTAs of 256 threads that fit on one SM for a launch of `kind` (0: #1,
+// 1: #2) at vector width vec_bytes.
+int dci_gather_occupancy(int kind, int vec_bytes, int* ctas_per_sm) {
+  const void* fn = kernel_of(kind, vec_bytes);
+  if (fn == nullptr) return int(cudaErrorInvalidValue);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreads, 0));
+}
+
 int dci_cached_gather(const void* hot, const void* host, const void* idx, const void* pos,
                       void* out, long long s, long long row_bytes, long long n_hot,
-                      long long n_host, int vec_bytes, void* stream) {
+                      long long n_host, int vec_bytes, int rows_per_warp, int miss_warps,
+                      int grid, void* stream) {
+  if (rows_per_warp < 1 || rows_per_warp > kWarp || miss_warps < 0 ||
+      miss_warps >= kWarpsPerCta || grid < 1)
+    return int(cudaErrorInvalidValue);
   return dispatch<LaunchRows>(vec_bytes, static_cast<const char*>(hot),
                               static_cast<const char*>(host), static_cast<const int32_t*>(idx),
                               static_cast<const int32_t*>(pos), static_cast<char*>(out),
                               int64_t(s), int64_t(row_bytes), int64_t(n_hot), int64_t(n_host),
+                              rows_per_warp, miss_warps, unsigned(grid),
                               static_cast<cudaStream_t>(stream));
 }
 
@@ -212,16 +392,16 @@ int dci_cached_gather_select(const void* hot, const void* host, const void* idx,
 }
 
 int dci_cached_gather_blocks(const void* hot, const void* host, const void* idx,
-                             const void* pos, const void* blk_mode, const void* blk_start,
-                             void* out, long long s, long long row_bytes, long long n_hot,
-                             long long n_host, long long row_block, int vec_bytes,
-                             void* stream) {
+                             const void* pos, void* out, void* modes, long long s,
+                             long long row_bytes, long long n_hot, long long n_host,
+                             long long row_block, int vec_bytes, int grid, void* stream) {
+  if (grid < 1 || row_block < 1) return int(cudaErrorInvalidValue);
   return dispatch<LaunchBlocks>(
       vec_bytes, static_cast<const char*>(hot), static_cast<const char*>(host),
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(pos),
-      static_cast<const int32_t*>(blk_mode), static_cast<const int32_t*>(blk_start),
-      static_cast<char*>(out), int64_t(s), int64_t(row_bytes), int64_t(n_hot), int64_t(n_host),
-      int64_t(row_block), static_cast<cudaStream_t>(stream));
+      static_cast<char*>(out), static_cast<int32_t*>(modes), int64_t(s), int64_t(row_bytes),
+      int64_t(n_hot), int64_t(n_host), int64_t(row_block), unsigned(grid),
+      static_cast<cudaStream_t>(stream));
 }
 
 // The device address of pinned host memory (cudaHostAlloc'd or registered):

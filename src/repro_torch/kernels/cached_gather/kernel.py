@@ -17,8 +17,21 @@ All three return ``out[i] = hot[pos[i]]`` when ``pos[i] >= 0`` (the raw
 position) and ``host[idx[i]]`` otherwise, with ids and slots clamped into
 their tables as the reference clamps them.  What bounds them is bytes: hit
 rows over device memory, miss rows over PCIe when the host table is pinned
-host memory (read in place over UVA), and the output written once; the
-source note in the ``.cu`` file says what the simple design does about it.
+host memory (read in place over UVA), and the output written once.
+
+#1 and #2 run a persistent grid: CTAs per SM from the occupancy API times
+the SM count, no more than the work needs (:func:`_grid`).  For short
+rows read from a pinned host table #1's warps are specialised
+(:func:`_miss_warps`): ``MISS_WARPS`` of each CTA copy only miss rows,
+the others only hit rows, so PCIe latency never stalls an HBM copy; a
+hit warp copies :func:`_rows_per_warp` rows at a time with several load
+instructions in flight before it stores, each instruction reading whole
+rows (a longer row alone, by all 32 lanes), and a miss warp the misses
+among 32 rows at a time.  A warp of #2 takes one row block at a time,
+classifies it with warp votes by the reference's rule (the kernel does
+what :func:`classify_blocks` states), and copies a run as one span and
+any other block row by row.  Both stage rows through registers.  The
+source note in the ``.cu`` file says more.
 
 Routing: on CPU tensors a wrapper computes the plain version
 (``ref.py``); with the hot table on a CUDA device it launches its kernel
@@ -53,6 +66,12 @@ __all__ = [
 
 ROW_BLOCK = 8  # default rows per block in the row-block variant
 
+# Launch constants shared with csrc/cached_gather.cu.
+WARPS_PER_CTA = 8  # kThreads / 32
+MISS_WARPS = 2  # warps of each #1 CTA that copy only the miss rows of short rows
+UNROLL = 8  # kUnroll: load instructions a warp issues before it stores
+KIND_ROWS, KIND_BLOCKS = 0, 1  # dci_gather_occupancy's kinds
+
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
@@ -62,14 +81,16 @@ def load_library() -> ctypes.CDLL:
     path, _ = build_library("cached_gather")
     lib = ctypes.CDLL(str(path))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.dci_cached_gather.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, p]
+    lib.dci_cached_gather.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, i, i, i, p]
     lib.dci_cached_gather_select.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, p]
-    lib.dci_cached_gather_blocks.argtypes = [p, p, p, p, p, p, p, ll, ll, ll, ll, ll, i, p]
+    lib.dci_cached_gather_blocks.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, ll, i, i, p]
+    lib.dci_gather_occupancy.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     lib.dci_host_device_pointer.argtypes = [p, ctypes.POINTER(ctypes.c_void_p)]
     for fn in (
         lib.dci_cached_gather,
         lib.dci_cached_gather_select,
         lib.dci_cached_gather_blocks,
+        lib.dci_gather_occupancy,
         lib.dci_host_device_pointer,
     ):
         fn.restype = ctypes.c_int
@@ -134,6 +155,48 @@ def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
     return next(v for v in (16, 8, 4, 2, 1) if g % v == 0)
 
 
+def _rows_per_warp(row_bytes: int, vec: int) -> int:
+    """Rows a warp of #1 copies at a time: one load instruction reads
+    ``32 // n_vec`` whole rows of up to 32 vectors, and a warp keeps
+    ``UNROLL`` instructions in flight, up to 32 rows (one lane holds each
+    row's source address); a longer row is copied alone."""
+    n_vec = row_bytes // vec
+    return min(32, 32 // n_vec * UNROLL) if n_vec <= 32 else 1
+
+
+def _miss_warps(row_bytes: int, vec: int, host_on_card: bool) -> int:
+    """Warps of each CTA of #1 that copy only miss rows: ``MISS_WARPS`` for
+    rows of up to 32 vectors read from a pinned host table, whose HBM and
+    PCIe sides overlap only when split (PERF.md), else 0 and every warp
+    copies both kinds: from a host table on the card (the prefetch pack)
+    the misses are HBM reads too and the split only idles two warps, and
+    for longer rows it measured slower."""
+    return MISS_WARPS if row_bytes // vec <= 32 and not host_on_card else 0
+
+
+def _grid(work: int, sm_count: int, ctas_per_sm: int, warps: int = WARPS_PER_CTA) -> int:
+    """CTAs of a persistent launch over ``work`` items for ``warps`` warps
+    of each CTA (chunks of rows for #1's hit warps, row blocks for #2):
+    every CTA the card holds at once, or fewer when the work does not fill
+    them."""
+    return max(1, min(sm_count * ctas_per_sm, -(-work // warps)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas_per_sm(kind: int, vec: int) -> int:
+    n = ctypes.c_int()
+    _check_status(load_library().dci_gather_occupancy(kind, vec, ctypes.byref(n)),
+                  "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    if n.value < 1:
+        raise RuntimeError(f"no CTA of gather kind {kind} fits on an SM")
+    return n.value
+
+
 def _launch_args(hot, host, indices, positions):
     idx = indices.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
@@ -153,7 +216,9 @@ def cached_gather(
     *,
     gather_buffers: int = 2,
 ) -> torch.Tensor:
-    """Two-source gather, one warp per row copying its winning source."""
+    """Two-source gather: a persistent grid whose warps copy chunks of
+    rows, each row from its winning source only (for short rows from a
+    pinned host table, hit and miss rows by separate warps)."""
     _validate(hot_table, host_table, indices, positions)
     if gather_buffers < 1:
         raise ValueError(f"gather_buffers must be >= 1, got {gather_buffers}")
@@ -164,9 +229,14 @@ def cached_gather(
     idx, pos, out, row_bytes, host_ptr, vec, stream = _launch_args(
         hot_table, host_table, indices, positions
     )
+    rows = _rows_per_warp(row_bytes, vec)
+    miss_warps = _miss_warps(row_bytes, vec, host_table.is_cuda)
+    grid = _grid(-(-idx.shape[0] // rows), _sm_count(hot_table.device.index),
+                 _ctas_per_sm(KIND_ROWS, vec), WARPS_PER_CTA - miss_warps)
     status = load_library().dci_cached_gather(
         hot_table.data_ptr(), host_ptr, idx.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        idx.shape[0], row_bytes, hot_table.shape[0], host_table.shape[0], vec, stream,
+        idx.shape[0], row_bytes, hot_table.shape[0], host_table.shape[0], vec, rows, miss_warps,
+        grid, stream,
     )
     _check_status(status, "dci_cached_gather launch")
     cached_gather.launches += 1
@@ -212,7 +282,9 @@ def classify_blocks(
     num_host: int,
     row_block: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(blk_mode, blk_start)``, ``int32[ceil(S / row_block)]`` each.
+    """``(blk_mode, blk_start)``, ``int32[ceil(S / row_block)]`` each: the
+    plain statement of the rule kernel #2 applies to each block itself
+    (the GPU tests hold the kernel's modes to it).
 
     The reference's rule (``kernel.py:391-407``): a block whose rows all
     hit at consecutive (clamped) hot slots is mode 1, all miss at
@@ -243,6 +315,26 @@ def classify_blocks(
     if n_blocks > n_full:
         start[n_full] = src[n_full * row_block]
     return mode, start
+
+
+def _launch_blocks(hot, host, indices, positions, row_block, *, modes=None):
+    """Launch #2 on validated CUDA operands (the hot table already padded
+    to ``row_block`` rows) and return the output.  ``modes`` (``int32``,
+    one entry per block, on the card) receives the in-kernel
+    classification; the wrapper passes none, chip_smoke.py and the GPU
+    tests hold it to :func:`classify_blocks`."""
+    if row_block * hot.shape[1] * hot.element_size() >= 2**31:
+        raise ValueError(f"a block of {row_block} rows exceeds 2 GiB")
+    idx, pos, out, row_bytes, host_ptr, vec, stream = _launch_args(hot, host, indices, positions)
+    grid = _grid(-(-idx.shape[0] // row_block), _sm_count(hot.device.index),
+                 _ctas_per_sm(KIND_BLOCKS, vec))
+    status = load_library().dci_cached_gather_blocks(
+        hot.data_ptr(), host_ptr, idx.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        0 if modes is None else modes.data_ptr(), idx.shape[0], row_bytes, hot.shape[0],
+        host.shape[0], row_block, vec, grid, stream,
+    )
+    _check_status(status, "dci_cached_gather_blocks launch")
+    return out
 
 
 def cached_gather_blocks(
@@ -286,16 +378,7 @@ def cached_gather_blocks(
         )
     if not on_cuda:
         return cached_gather_ref(hot_table, host_table, indices, positions)
-    idx, pos, out, row_bytes, host_ptr, vec, stream = _launch_args(
-        hot_table, host_table, indices, positions
-    )
-    mode, start = classify_blocks(idx, pos, hot_table.shape[0], host_table.shape[0], row_block)
-    status = load_library().dci_cached_gather_blocks(
-        hot_table.data_ptr(), host_ptr, idx.data_ptr(), pos.data_ptr(), mode.data_ptr(),
-        start.data_ptr(), out.data_ptr(), idx.shape[0], row_bytes, hot_table.shape[0],
-        host_table.shape[0], row_block, vec, stream,
-    )
-    _check_status(status, "dci_cached_gather_blocks launch")
+    out = _launch_blocks(hot_table, host_table, indices, positions, row_block)
     cached_gather_blocks.launches += 1
     return out
 

@@ -240,3 +240,72 @@ def test_vector_width_follows_pitch_and_alignment():
     assert tk._vec_bytes(400, 256, 520, 1024) == 8  # an 8-byte-aligned base
     assert tk._vec_bytes(6, 256, 512, 1024) == 2  # three bf16 values
     assert tk._vec_bytes(3, 256, 512, 1024) == 1
+
+
+@pytest.mark.parametrize(
+    "row_bytes,vec,rows",
+    [(400, 16, 8), (512, 16, 8), (800, 16, 1), (2408, 8, 1), (1204, 4, 1), (200, 8, 8),
+     (64, 16, 32), (6, 2, 32), (2, 2, 32), (96, 8, 16)],
+)
+def test_rows_per_warp_keeps_eight_loads_in_flight(row_bytes, vec, rows):
+    """#1's chunk: one load instruction reads 32 // n_vec whole rows of up
+    to 32 vectors; a warp takes the rows of eight instructions, up to 32
+    (one source address per lane).  A row longer than 32 vectors is
+    copied alone."""
+    assert tk._rows_per_warp(row_bytes, vec) == rows
+    n_vec = row_bytes // vec
+    if n_vec <= 32:
+        assert -(-rows // (32 // n_vec)) <= tk.UNROLL and (rows == 32 or rows % (32 // n_vec) == 0)
+
+
+@pytest.mark.parametrize(
+    "work,warps,grid",
+    [
+        (0, 8, 1),  # S = 0 is never launched (the wrappers return first); 1 is the least
+        (1, 8, 1),  # S = 1
+        (8, 8, 1),  # one CTA's warps
+        (9, 8, 2),  # one chunk more
+        (279, 8, 35),  # S just below one grid of the small card
+        (280, 8, 35),  # exactly one grid
+        (281, 8, 35),  # above one grid: the grid stays the card's, warps stride
+        (210, 6, 35),  # #1 split: the grid counts hit warps only
+        (211, 6, 35),
+        (209, 6, 35),
+        (204, 6, 34),
+    ],
+)
+def test_persistent_grid_covers_every_row_once(work, warps, grid):
+    """The grid is every CTA the card holds (SM count x CTAs per SM), or
+    fewer when the work (chunks of rows for #1, row blocks for #2) does
+    not fill them: then one pass of the warps covers every chunk once and
+    no CTA is left without a chunk for its first warp.  (A larger grid's
+    stride loop is covered on the card by the ragged-tail GPU test.)"""
+    sm, ctas = 7, 5  # a small card, so that the work crosses whole grids here
+    assert tk._grid(work, sm, ctas, warps) == grid
+    assert 1 <= grid <= sm * ctas
+    if grid < sm * ctas:
+        assert (grid - 1) * warps < max(work, 1) <= grid * warps
+
+
+@pytest.mark.parametrize("host_on_card", [False, True])
+@pytest.mark.parametrize("row_bytes,vec,split", [(400, 16, True), (512, 16, True), (2408, 8, False),
+                                                 (1204, 4, False), (2, 2, True), (6, 2, True)])
+def test_miss_warps_split_short_rows_only(row_bytes, vec, split, host_on_card):
+    """#1 splits its warps into hit and miss warps for rows of up to 32
+    vectors read from a pinned host table, and lets every warp take both
+    kinds for longer rows and for a host table on the card (the prefetch
+    pack), whose misses are HBM reads too."""
+    want = tk.MISS_WARPS if split and not host_on_card else 0
+    assert tk._miss_warps(row_bytes, vec, host_on_card) == want
+    assert 0 <= want < tk.WARPS_PER_CTA
+
+
+def test_grid_at_the_main_shape():
+    """1,081,344 frontier rows of 400 bytes: 8 rows per warp, and far more
+    chunks than one grid of an H100 (132 SMs) holds, so the grid is the
+    card's; the dedup bucket's 8-row blocks likewise."""
+    rows = tk._rows_per_warp(400, 16)
+    assert rows == 8 and tk._grid(-(-1_081_344 // rows), 132, 4, 6) == 528
+    assert tk._grid(-(-1_081_344 // rows), 132, 4, 8) == 528
+    assert tk._grid(262_144 // 8, 132, 4) == 528
+    assert tk._grid(3, 132, 4) == 1

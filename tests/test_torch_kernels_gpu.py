@@ -108,6 +108,117 @@ def test_blocks_runs_and_row_blocks(cuda):
             assert torch.equal(out, cached_gather_ref(hot, host, ids[:61], pos[:61]))
 
 
+def _run_inputs(cuda, s, h, n, seed, max_run=80):
+    """Ids and slots in runs of 1 to ``max_run`` rows: consecutive hits,
+    consecutive misses (some ending at their table's last row, some
+    reaching past it and clamping there), runs broken by one row, and
+    random rows."""
+    gen = np.random.default_rng(seed)
+    idx = gen.integers(0, n, s).astype(np.int32)
+    pos = gen.integers(-1, h, s).astype(np.int32)
+
+    def start(size, length):
+        u = gen.random()
+        return size - length if u < 0.15 else size - length // 2 if u < 0.3 else gen.integers(0, size)
+
+    i = 0
+    while i < s:
+        length = min(int(gen.integers(1, max_run + 1)), s - i)
+        kind = int(gen.integers(0, 4))
+        run = np.arange(length, dtype=np.int32)
+        if kind == 0:  # a hit run
+            pos[i : i + length] = start(h, length) + run
+        elif kind == 1:  # a miss run
+            idx[i : i + length] = start(n, length) + run
+            pos[i : i + length] = -1 - run % 3
+        elif kind == 2:  # a run broken by one row
+            pos[i : i + length] = gen.integers(0, h) + run
+            pos[i + length // 2] = -1
+        i += length
+    return torch.from_numpy(idx).to(cuda), torch.from_numpy(pos).to(cuda)
+
+
+def _vec(row_bytes, hot, host):
+    return tk._vec_bytes(row_bytes, hot.data_ptr(), host.data_ptr(), 256)
+
+
+@pytest.mark.parametrize("host_on", ["pinned", "device"])
+@pytest.mark.parametrize("f", [100, 602])
+@pytest.mark.parametrize("kind", ["db", "blocks"])
+def test_ragged_tails_of_the_persistent_grid(cuda, kind, f, host_on):
+    """S below, at and just above one warp's rows and one full persistent
+    grid (for #1 with short rows from a pinned table, of its hit warps and
+    of its miss warps; otherwise every warp takes both kinds), and S = 1:
+    every tail of the stride loops."""
+    h, n, row_block = 300, 5000, tk.ROW_BLOCK
+    hot, host = _tables(cuda, h, n, f, torch.float32, host_on)
+    row_bytes = f * 4
+    vec = _vec(row_bytes, hot, host)
+    miss_warps = tk._miss_warps(row_bytes, vec, host.is_cuda) if kind == "db" else 0
+    if kind == "db":  # hit warps' chunks, and miss warps' chunks of 32 rows
+        per_warp = tk._rows_per_warp(row_bytes, vec)
+        ctas = tk._ctas_per_sm(tk.KIND_ROWS, vec)
+    else:
+        per_warp = row_block
+        ctas = tk._ctas_per_sm(tk.KIND_BLOCKS, vec)
+    n_ctas = tk._sm_count(cuda.index or 0) * ctas
+    sizes = {1, per_warp - 1, per_warp, per_warp + 1, 31, 32, 33}
+    grids = [n_ctas * (tk.WARPS_PER_CTA - miss_warps) * per_warp]
+    if miss_warps:
+        grids.append(n_ctas * miss_warps * 32)
+    for grid_rows in grids:
+        sizes |= {grid_rows - 1, grid_rows, grid_rows + 1}
+    for s in sorted(sizes - {0}):
+        idx, pos = _run_inputs(cuda, s, h, n, seed=s)
+        out = KERNELS[kind](hot, host, idx, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(out, cached_gather_ref(hot, host, idx, pos)), s
+
+
+@pytest.mark.parametrize("host_on", ["pinned", "device"])
+@pytest.mark.parametrize("dtype,f", [(torch.float32, 100), (torch.float32, 602),
+                                     (torch.bfloat16, 1), (torch.bfloat16, 3),
+                                     (torch.bfloat16, 602)])
+@pytest.mark.parametrize("row_block", [2, 3, 8, 32, 33, 100])
+def test_blocks_classify_in_kernel(cuda, row_block, dtype, f, host_on):
+    """#2 on runs, broken runs and mixed blocks at every vector width:
+    its output equals ref.py's, and the modes it computes equal
+    classify_blocks'."""
+    h, n, s = 1000, 4000, 3001
+    hot, host = _tables(cuda, h, n, f, dtype, host_on)
+    idx, pos = _run_inputs(cuda, s, h, n, seed=row_block * 7 + f, max_run=3 * row_block)
+    # Blocks 0 and 1: spans that end at the hot table's and the host
+    # table's last row.
+    run = torch.arange(row_block, dtype=torch.int32, device=cuda)
+    pos[:row_block] = h - row_block + run
+    idx[row_block : 2 * row_block] = n - row_block + run
+    pos[row_block : 2 * row_block] = -1
+    want = cached_gather_ref(hot, host, idx, pos)
+    before = tk.cached_gather_blocks.launches
+    assert torch.equal(tk.cached_gather_blocks(hot, host, idx, pos, row_block=row_block), want)
+    assert tk.cached_gather_blocks.launches == before + 1
+    want_mode, _ = tk.classify_blocks(idx, pos, h, n, row_block)
+    assert want_mode[0] == 1 and want_mode[1] == 2
+    modes = torch.full_like(want_mode, -1)
+    out = tk._launch_blocks(hot, host, idx, pos, row_block, modes=modes)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(modes, want_mode)
+    assert tk.cached_gather_blocks.launches == before + 1
+
+
+def test_blocks_pad_a_short_hot_table_on_the_card(cuda):
+    """H = 4 < row_block: slots in [4, 8) read zero pad rows and larger
+    slots clamp to pad row 7, as the reference's row-block kernel pads."""
+    hot, host = _tables(cuda, 4, 50, 100, torch.float32, "pinned")
+    pos = torch.tensor([0, 1, 2, 3, 5, 100, -1, 2, 0, 1, 2, 3, 4, 5, 6, 7, 3], dtype=torch.int32,
+                       device=cuda)
+    idx = torch.arange(pos.shape[0], dtype=torch.int32, device=cuda)
+    padded = torch.cat([hot, hot.new_zeros((4, 100))])
+    out = tk.cached_gather_blocks(hot, host, idx, pos)
+    assert torch.equal(out, cached_gather_ref(padded, host, idx, pos))
+    assert not out[[4, 5, 12, 13, 14, 15]].any() and out[[0, 1, 2, 3]].any(dim=1).all()
+
+
 def test_wrappers_refuse_what_they_cannot_read(cuda):
     hot, host = _tables(cuda, 4, 20, 16, torch.float32, "device")
     idx, pos = _ids(cuda, 9, 4, 20, seed=1)
