@@ -11,8 +11,9 @@ whose errors is caught:
 1. device: the card's name and power limit;
 2. build: compile the three sources of ``src/repro_torch/csrc/``
    (``cached_gather.cu``, ``seg_agg.cu``, ``flash_attention.cu``) with
-   ``nvcc``, one process each, all started together, and print the
-   ``-Xptxas -v`` summary; measure the pinned host→device copy rate;
+   ``nvcc``, one process each, all started together, print the build
+   time and each kernel's registers and spills from ``-Xptxas -v``;
+   measure the pinned host→device copy rate;
 3. main-path setup: ``load_dataset("ogbn-products", scale=1.0)`` (Table II
    size) and ``prepare("dci", total_cache_bytes=256 MB)`` on the card
    (presampling gathers through kernel #1, so this also sets the Eq. 1
@@ -44,19 +45,24 @@ whose errors is caught:
 6. B5, ``flash_attention``: against ``ref.py`` on the cases of
    tests/test_kernels.py in float32 and bfloat16, GQA included, and at
    Gemma-2 27B's attention shape (B 1, Hq 32, Hkv 16, D 128, bf16,
-   S 4096, causal, window 4096, softcap 50) and its decode shape (Sq 1).
+   S 4096, causal, window 4096, softcap 50) and its decode shape (Sq 1),
+   where the per-design counters must show the prefill on the tensor-core
+   kernel (``wgmma``) and the decode on the split-key kernel (``split``).
    Every bfloat16 output is held twice: against ``ref.py`` in bfloat16
    (5e-2) and against ``ref.py`` in float32 on the same inputs (rtol
    2e-2, atol 2e-3); at the Gemma-2 shapes the float32 kernel also runs
-   on the upcast inputs against ``ref.py`` in float32 (3e-4).  Timed
-   beside ``ref.py``, ``flex_attention`` (compiled once, before the
-   timing) with the same softcap and mask — the library time —,
-   ``scaled_dot_product_attention`` at the same shapes without softcap,
-   and the bound (bf16 tensor-core peak, bytes);
+   on the upcast inputs against ``ref.py`` in float32 (3e-4) and is
+   timed.  Timed beside ``ref.py``, ``flex_attention`` (compiled once,
+   before the timing) with the same softcap and mask — the library time
+   —, ``scaled_dot_product_attention`` at the same shapes without
+   softcap, and the bound (bf16 tensor-core peak, bytes); the kernel
+   also in a CUDA graph (device time without the host's per-call cost),
+   with TFLOP/s at prefill and GB/s at decode beside the card's peaks;
 7. the ops path: ``repro_torch.kernels.aggregate_neighbors`` at the
    main path's shape and ``multi_head_attention`` at both Gemma-2 shapes,
    with the counters of B4 and B5 set to 0 just before and read just
-   after (each must be > 0);
+   after (each must be > 0; B5's prefill on ``wgmma``, its decode on
+   ``split``);
 8. main path: GraphSAGE (3 layers, hidden 128) through
    ``GNNInferenceEngine`` on the kernel route, with and without dedup and
    with and without prefetch, at depth 1 (stages synchronized) and
@@ -191,12 +197,14 @@ def build_phase() -> dict:
     for mod in (cg, sa, fa):
         mod.load_library()
     build_s = time.perf_counter() - t0
-    log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v:")
+    log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v, per kernel:")
+    ptxas = {}
     for name, (lib, report) in built.items():
         log(f"  {lib.relative_to(ROOT)}")
-        for line in report.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log("    " + line.strip())
+        ptxas[name] = ptxas_summary(report)
+        for entry in ptxas[name]:
+            log(f"    {entry['kernel']}: {entry['registers']} registers, spill stores "
+                f"{entry['spill_stores']} B, loads {entry['spill_loads']} B")
     # Pinned host -> device copy rate: the miss path's link, measured.
     nbytes = 1 << 30
     src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
@@ -207,7 +215,33 @@ def build_phase() -> dict:
         f"published rates: PCIe Gen5 x16 {PCIE5_BW / 1e9:.0f} GB/s one way, "
         f"HBM3 {HBM3_BW / 1e12:.2f} TB/s")
     del src, dst
-    return {"build_s": build_s, "h2d_bytes_per_s": h2d}
+    return {"build_s": build_s, "h2d_bytes_per_s": h2d, "ptxas": ptxas}
+
+
+def ptxas_summary(report: str) -> list[dict]:
+    """Registers and spills of each kernel in an ``-Xptxas -v`` report,
+    the names demangled by ``c++filt`` where the toolchain has it."""
+    import re
+    import shutil
+
+    entries, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes", line)
+            entries.append({"kernel": name, "spill_stores": int(nums[1]),
+                            "spill_loads": int(nums[2])})
+        elif name and "Used" in line and "registers" in line and entries:
+            entries[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    filt = shutil.which("c++filt")
+    if filt and entries:
+        names = subprocess.run([filt], input="\n".join(e["kernel"] for e in entries),
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for entry, pretty in zip(entries, names):
+            entry["kernel"] = (pretty.replace("(anonymous namespace)::", "").split("(")[0]
+                               .removeprefix("void "))
+    return entries
 
 
 def setup_phase():
@@ -515,15 +549,17 @@ def attention_phase(peaks: tuple[float, float]) -> tuple[dict, float]:
     g = GEMMA
     bf16_peak, hbm = peaks
     rows = {}
-    for label, sq, causal in (("prefill", g["s"], True), ("decode", 1, False)):
+    for label, sq, causal, design, design32 in (("prefill", g["s"], True, "wgmma", "fma"),
+                                                ("decode", 1, False, "split", "split")):
         q, k, v = gemma_inputs(sq)
         kw = dict(causal=causal, window=g["window"], softcap=g["softcap"])
-        err = check_attention(fa.flash_attention(q, k, v, **kw), q, k, v, kw)
+        err = check_attention(designed_call(fa, design, q, k, v, kw), q, k, v, kw)
         max_err = max(max_err, err)
         # The float32 kernel on the same inputs, upcast: the tight check of
         # this shape's GQA indexing and of every key tile.
         q32, k32, v32 = q.float(), k.float(), v.float()
-        err32 = check_attention(fa.flash_attention(q32, k32, v32, **kw), q32, k32, v32, kw)
+        err32 = check_attention(designed_call(fa, design32, q32, k32, v32, kw), q32, k32, v32, kw)
+        f32_ms = cuda_ms(lambda: fa.flash_attention(q32, k32, v32, **kw), reps=2 if sq > 1 else 5)
         del q32, k32, v32
         library = flex_library(sq, g["s"], causal, g["window"], g["softcap"])
         lib_out = library(q, k, v)
@@ -547,16 +583,52 @@ def attention_phase(peaks: tuple[float, float]) -> tuple[dict, float]:
             nocap_ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **nocap), reps=5),
             sdpa_nocap_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), reps=5),
+            graph_ms=graph_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=20),
+            f32_ms=f32_ms, design=design, f32_design=design32,
         )
+        row.update(tflops=flops / row["ms"] / 1e9, flops_share=flops / row["ms"] / 1e-3 / bf16_peak,
+                   gbs=nbytes / row["graph_ms"] / 1e6, hbm_share=nbytes / row["graph_ms"] / 1e-3 / hbm)
         rows[label] = row
         log(f"  {label} {row['shape']} bf16 causal={causal} window {g['window']} softcap "
-            f"{g['softcap']}: kernel {row['ms']:.3f} ms  bound {bound:.4f} ms ({row['bound_by']}, "
-            f"{flops / 1e9:.1f} GFLOP)  ref.py {row['plain_ms']:.3f} ms  flex_attention "
-            f"{row['library_ms']:.3f} ms; without softcap: kernel {row['nocap_ms']:.3f} ms  "
-            f"scaled_dot_product_attention {row['sdpa_nocap_ms']:.3f} ms")
+            f"{g['softcap']} ({design}): kernel {row['ms']:.4f} ms (in a CUDA graph "
+            f"{row['graph_ms']:.4f})  bound {bound:.4f} ms ({row['bound_by']}, "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)  ref.py {row['plain_ms']:.3f} ms  "
+            f"flex_attention {row['library_ms']:.4f} ms; f32 ({design32}) {f32_ms:.4f} ms; without "
+            f"softcap: kernel {row['nocap_ms']:.4f} ms  scaled_dot_product_attention "
+            f"{row['sdpa_nocap_ms']:.4f} ms")
+        if label == "prefill":
+            log(f"    {row['tflops']:.1f} TFLOP/s, {100 * row['flops_share']:.1f}% of the bf16 "
+                f"peak {bf16_peak / 1e12:.0f} TFLOP/s")
+        else:
+            log(f"    {row['gbs']:.1f} GB/s in the graph, {100 * row['hbm_share']:.1f}% of HBM's "
+                f"{hbm / 1e12:.2f} TB/s ({nbytes / row['ms'] / 1e6:.1f} GB/s per eager call)")
         log(f"    max abs err vs ref.py: bf16 kernel {err:.3g} (also within rtol 2e-2 atol 2e-3 "
             f"of ref.py in f32), f32 kernel {err32:.3g} (within 3e-4), flex_attention {lib_err:.3g}")
     return rows, max_err
+
+
+def designed_call(fa, design: str, q, k, v, kw):
+    """One ``flash_attention`` call that must go through ``design``: the
+    per-design counters, set to 0 just before, read just after."""
+    fa.flash_attention.design_launches = dict.fromkeys(fa.DESIGNS, 0)
+    out = fa.flash_attention(q, k, v, **kw)
+    counts = dict(fa.flash_attention.design_launches)
+    if counts != {**dict.fromkeys(fa.DESIGNS, 0), design: 1}:
+        raise AssertionError(f"{tuple(q.shape)} {q.dtype} should take {design}: {counts}")
+    return out
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``reps`` calls captured in one CUDA
+    graph and replayed: the device's time without the host's per-call
+    cost (which a short call's eager timing measures instead)."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5) / reps
 
 
 def ops_path_phase() -> dict:
@@ -577,12 +649,14 @@ def ops_path_phase() -> dict:
     counters = (sa.seg_agg, fa.flash_attention)
     for fn in counters:
         fn.launches = 0
+    fa.flash_attention.design_launches = dict.fromkeys(fa.DESIGNS, 0)
     agg = aggregate_neighbors(x, mode="mean", use_kernel=True)
     outs = {label: multi_head_attention(q, k, v, causal=label == "prefill", window=g["window"],
                                         softcap=g["softcap"], use_kernel=True)
             for label, (q, k, v) in inputs.items()}
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
+    designs = dict(fa.flash_attention.design_launches)
     if agg.shape != (SEG_SHAPE[0], SEG_SHAPE[2]) or not bool(torch.isfinite(agg).all()):
         raise AssertionError(f"aggregate_neighbors gave {tuple(agg.shape)}, finite="
                              f"{bool(torch.isfinite(agg).all())}")
@@ -591,7 +665,9 @@ def ops_path_phase() -> dict:
             raise AssertionError(f"multi_head_attention ({label}) gave {tuple(out.shape)}")
     if min(launches.values()) == 0:
         raise AssertionError(f"an ops-path kernel was never launched: {launches}")
-    log(f"  launches on the ops path: {launches}; outputs finite, shapes "
+    if designs != {"fma": 0, "wgmma": 1, "split": 1}:  # prefill, decode
+        raise AssertionError(f"B5 designs on the ops path: {designs}")
+    log(f"  launches on the ops path: {launches}, B5 by design {designs}; outputs finite, shapes "
         f"{tuple(agg.shape)}, {[tuple(o.shape) for o in outs.values()]}")
     return launches
 
@@ -909,6 +985,10 @@ def main() -> int:
         "ops_launches": ops_launches, "main_path": main_path, "cli": cli, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
+    decode = att_rows["decode"]
+    log(json.dumps({"flash_attention_decode": {
+        k: decode[k] for k in ("shape", "design", "ms", "graph_ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by", "f32_ms", "max_abs_err")}}))
     log(f"done in {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
     log(device["nvidia_smi"])
     log(json.dumps({"kernels": kernels}))

@@ -9,7 +9,10 @@ collects the same tests.  On a machine with a card:
 Gathers are copies, so their comparisons are ``torch.equal``; the
 aggregation and attention kernels are held at the tolerances their CPU
 parity tests state (float32 1e-6 and 3e-4, bfloat16 2e-2 and 5e-2), with
-TF32 off for the plain version's float32 products.
+TF32 off for the plain version's float32 products.  Each attention call
+is checked against the design ``plan`` gives it (its per-design counter),
+and a tensor-core output also against ``ref.py`` in float32 on the same
+inputs (rtol 2e-2, atol 2e-3).
 """
 
 import numpy as np
@@ -22,7 +25,8 @@ from repro_torch.kernels.cached_gather import kernel as tk
 from repro_torch.kernels.cached_gather.ops import cached_feature_gather
 from repro_torch.kernels.cached_gather.ref import cached_gather_ref
 from repro_torch.kernels.flash_attention import kernel as fa
-from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
+from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_split_ref,
+                                                      expand_kv)
 from repro_torch.kernels.seg_agg import kernel as sa
 from repro_torch.kernels.seg_agg.ref import seg_agg_ref
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
@@ -291,6 +295,14 @@ def test_gathers_read_a_prefetched_pack(cuda, cached_rows):
 
 SEG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
 ATT_TOL = {torch.float32: 3e-4, torch.bfloat16: 5e-2}
+# A bfloat16 output against ref.py in float32 on the same inputs (rtol,
+# atol): the kernel rounds only p and its output to bfloat16, which moves a
+# row that keeps n keys by about 2**-9 |v| / sqrt(n).  Held on the rows that
+# keep at least F32_MIN_KEYS keys: on a row of two keys and an output near
+# 0 the reference's own rounding of p exceeds atol (ref.py in bfloat16
+# fails the same check there).
+ATT_TOL_BF16_F32 = (2e-2, 2e-3)
+F32_MIN_KEYS = 16
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -327,16 +339,46 @@ def _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=0):
     return q, k, v
 
 
-def _check_attention(q, k, v, **kw):
+def _design(q, k):
+    return fa.plan(q.dtype, q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                   q.shape[3], torch.cuda.get_device_properties(q.device).multi_processor_count)
+
+
+def _check_attention(q, k, v, design=None, **kw):
+    """One call through the wrapper: one launch, counted under the design
+    ``plan`` names (and ``design`` where the test names one), held to
+    ref.py in q's dtype and, for a tensor-core output, in float32."""
+    route = _design(q, k)
+    assert design is None or route.design == design
     before = fa.flash_attention.launches
+    designs = dict(fa.flash_attention.design_launches)
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1 and got.dtype == q.dtype
+    designs[route.design] += 1
+    assert fa.flash_attention.design_launches == designs
     hq = q.shape[1]
     want = attention_ref(q, expand_kv(k, hq), expand_kv(v, hq), **kw)
     tol = ATT_TOL[q.dtype]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    if route.design == "wgmma":
+        want32 = attention_ref(q.float(), expand_kv(k.float(), hq), expand_kv(v.float(), hq), **kw)
+        rows = _kept_keys(q.shape[2], k.shape[2], q.device, **kw) >= F32_MIN_KEYS
+        rtol, atol = ATT_TOL_BF16_F32
+        torch.testing.assert_close(got.float()[:, :, rows], want32[:, :, rows], rtol=rtol, atol=atol)
     return got
+
+
+def _kept_keys(sq, sk, device, *, causal=True, window=None, softcap=None):
+    """Keys each query row keeps under the masks."""
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= qi >= ki
+    if window is not None:
+        keep &= qi - ki < window
+    return keep.sum(1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -387,3 +429,60 @@ def test_flash_attention_edges_and_refusals(cuda):
     two_d = fa.flash_attention_2d(q[0, 1], k[0, 0], v[0, 0], causal=True, softcap=20.0)
     torch.testing.assert_close(two_d, fa.flash_attention(q, k, v, causal=True, softcap=20.0)[0, 1],
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "wgmma"), (torch.float32, "fma")])
+@pytest.mark.parametrize(
+    "sq,sk,d,causal,window,cap",
+    [
+        (127, 127, 128, True, None, 50.0),
+        (129, 129, 64, True, None, None),
+        (1000, 1000, 128, True, 300, 50.0),  # the window cuts key tiles
+        (129, 4097, 128, False, None, None),
+        (127, 4097, 64, False, 1000, None),
+        (1000, 129, 256, True, None, 30.0),
+        (300, 100, 128, False, 50, None),  # rows from 149 on keep no key
+    ],
+)
+def test_flash_attention_prefill_ragged_tiles(cuda, dtype, design, sq, sk, d, causal, window,
+                                              cap):
+    """Query and key counts around the 128-row tile, GQA 4:2."""
+    q, k, v = _qkv(cuda, 1, 4, 2, sq, sk, d, dtype, seed=sq * 3 + sk + d)
+    got = _check_attention(q, k, v, design=design, causal=causal, window=window, softcap=cap)
+    if sq == 300:
+        assert not got[:, :, 149:].any() and got[:, :, :149].abs().sum(-1).gt(0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,group", [(4, 1), (2, 2), (1, 8)])
+@pytest.mark.parametrize("sk", [1, 2, 63, 64, 65, 1000, 4096, 5000])
+def test_flash_attention_split(cuda, dtype, hkv, group, sk):
+    """The split-key decode at Sq 1 (and Sq 2): against ref.py and against
+    its plain statement with the same chunks."""
+    for sq, kw in ((1, dict(causal=False, softcap=50.0)), (2, dict(causal=False, window=40))):
+        q, k, v = _qkv(cuda, 2, hkv * group, hkv, sq, sk, 64, dtype, seed=sk + group)
+        got = _check_attention(q, k, v, design="split", **kw)
+        hq = hkv * group
+        chunk = _design(q, k).chunk
+        want = attention_split_ref(q, expand_kv(k, hq), expand_kv(v, hq), chunk=chunk, **kw)
+        torch.testing.assert_close(got, want, rtol=ATT_TOL[dtype], atol=ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_split_masked_chunks(cuda, dtype):
+    """Chunks that keep no key: causal Sq 1 keeps key 0 only (the output is
+    v[0]); 16 causal rows under a window of 3 keep keys 0-15 of 3000."""
+    q, k, v = _qkv(cuda, 1, 8, 1, 1, 3000, 128, dtype, seed=5)
+    got = _check_attention(q, k, v, design="split", causal=True)
+    torch.testing.assert_close(got[0, :, 0], v[0, 0, 0].expand(8, 128), rtol=0, atol=0)
+    q, k, v = _qkv(cuda, 2, 16, 16, 16, 3000, 80, dtype, seed=6)
+    _check_attention(q, k, v, design="split", causal=True, window=3, softcap=20.0)
+
+
+@pytest.mark.parametrize("dtype,sq,sk,design", [(torch.bfloat16, 17, 64, "wgmma"),
+                                                (torch.float32, 17, 64, "fma"),
+                                                (torch.bfloat16, 1, 64, "split")])
+def test_flash_attention_beyond_65535_heads(cuda, dtype, sq, sk, design):
+    """B * Hq = 70,000: every grid is one-dimensional, so no 65535 limit."""
+    q, k, v = _qkv(cuda, 2, 35_000, 35_000, sq, sk, 32, dtype, seed=7)
+    _check_attention(q, k, v, design=design, causal=False)
