@@ -12,7 +12,9 @@ whose errors is caught:
 2. build: compile the three sources of ``src/repro_torch/csrc/``
    (``cached_gather.cu``, ``seg_agg.cu``, ``flash_attention.cu``) with
    ``nvcc``, one process each, all started together, print the build
-   time and each kernel's registers and spills from ``-Xptxas -v``;
+   time and each kernel's registers, static shared memory and spills
+   from ``-Xptxas -v``, and kernel #3's ring (its dynamic shared memory
+   per CTA and CTAs per SM at the F = 100 and F = 602 row widths);
    measure the pinned host→device copy rate;
 3. main-path setup: ``load_dataset("ogbn-products", scale=1.0)`` (Table II
    size) and ``prepare("dci", total_cache_bytes=256 MB)`` on the card
@@ -26,10 +28,12 @@ whose errors is caught:
    pinned on the CPU and on the card, plus all-hit, all-miss, empty and
    out-of-range cases; each kernel timed with CUDA events beside
    ``ref.py``, ``torch.index_select`` on a device-resident table, and the
-   bytes bound (PCIe at the card's published Gen5 x16 peak); then #1 and
-   #2 split into their HBM side (every row forced to hit, beside
+   bytes bound (PCIe at the card's published Gen5 x16 peak); then #1, #2
+   and #3 split into their HBM side (every row forced to hit, beside
    ``index_select`` on the hot table) and their PCIe side (every row
-   missing, beside the miss bytes over the measured pinned rate), #1 on
+   missing, beside the miss bytes over the measured pinned rate) — #3's
+   all-hit time must stay near #1's, which shows that it no longer reads
+   the losing host row —, #1 on
    the miss rows alone (every occurrence against each distinct row
    once), and #2's in-kernel block modes against ``classify_blocks``;
    then the device work of one batch's feature stage on the plain and
@@ -87,6 +91,7 @@ import concurrent.futures
 import json
 import os
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -112,6 +117,17 @@ ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # near 0.03, where the 5e-2 parity check above could not see a dropped
 # key tile.
 ATT_TOL_BF16_F32 = (2e-2, 2e-3)
+# Kernel #3's all-hit time over #1's on the pinned frontier, at most: both
+# read only hot rows there, while reading the losing host row of every row
+# too would add the PCIe time of every row (the phase prints it).  The
+# ratio is the median of SELECT_RATIO_TRIALS device-only timings of each,
+# taken in turns (device_ms).
+SELECT_ALL_HIT_RATIO = 1.3
+SELECT_RATIO_TRIALS = 5
+# Device cycles the card spins (torch.cuda._sleep) before device_ms's first
+# event: about 20 ms at the H100's 1.98 GHz, long enough for the host to
+# queue every timed call behind it.
+QUEUE_AHEAD_CYCLES = 40_000_000
 REPLACES = {
     "cached_gather": "src/repro/kernels/cached_gather/kernel.py:152",
     "cached_gather_blocks": "src/repro/kernels/cached_gather/kernel.py:347",
@@ -151,6 +167,25 @@ def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Like :func:`cuda_ms`, but every call is queued behind a device spin
+    before the first event is recorded, so the card runs the calls back to
+    back and a pause of the host between two launches (a call of 0.2 ms
+    next to a host stall of 0.5 ms) is not counted as the kernel's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -203,8 +238,22 @@ def build_phase() -> dict:
         log(f"  {lib.relative_to(ROOT)}")
         ptxas[name] = ptxas_summary(report)
         for entry in ptxas[name]:
-            log(f"    {entry['kernel']}: {entry['registers']} registers, spill stores "
-                f"{entry['spill_stores']} B, loads {entry['spill_loads']} B")
+            log(f"    {entry['kernel']}: {entry['registers']} registers, {entry['smem']} B static "
+                f"shared memory, spill stores {entry['spill_stores']} B, loads "
+                f"{entry['spill_loads']} B")
+    # Kernel #3's ring in dynamic shared memory, at the main path's row and
+    # reddit's (f32 and bf16), and the CTAs per SM it leaves room for.
+    select_ring = {}
+    for label, row_bytes, vec in (("F=100 f32", 400, 16), ("F=602 f32", 2408, 8),
+                                  ("F=602 bf16", 1204, 4)):
+        rows, unroll, stages = cg._select_ring(row_bytes, vec)
+        smem = cg._select_smem(vec, unroll, stages)
+        ring = dict(vec=vec, chunk_rows=rows, unroll=unroll, stages=stages, dynamic_smem=smem,
+                    ctas_per_sm=cg._ctas_per_sm(cg.KIND_SELECT, vec, smem))
+        select_ring[label] = ring
+        log(f"  cached_gather_select ring, {label} ({row_bytes} B rows, {vec} B vectors): "
+            f"{stages} stages of 32 x {unroll} vectors per warp, chunks of {rows} rows; dynamic "
+            f"shared memory {smem} B per CTA, {ring['ctas_per_sm']} CTAs per SM")
     # Pinned host -> device copy rate: the miss path's link, measured.
     nbytes = 1 << 30
     src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
@@ -215,12 +264,14 @@ def build_phase() -> dict:
         f"published rates: PCIe Gen5 x16 {PCIE5_BW / 1e9:.0f} GB/s one way, "
         f"HBM3 {HBM3_BW / 1e12:.2f} TB/s")
     del src, dst
-    return {"build_s": build_s, "h2d_bytes_per_s": h2d, "ptxas": ptxas}
+    return {"build_s": build_s, "h2d_bytes_per_s": h2d, "ptxas": ptxas,
+            "select_ring": select_ring}
 
 
 def ptxas_summary(report: str) -> list[dict]:
-    """Registers and spills of each kernel in an ``-Xptxas -v`` report,
-    the names demangled by ``c++filt`` where the toolchain has it."""
+    """Registers, static shared memory and spills of each kernel in an
+    ``-Xptxas -v`` report, the names demangled by ``c++filt`` where the
+    toolchain has it."""
     import re
     import shutil
 
@@ -234,6 +285,8 @@ def ptxas_summary(report: str) -> list[dict]:
                             "spill_loads": int(nums[2])})
         elif name and "Used" in line and "registers" in line and entries:
             entries[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            entries[-1]["smem"] = int(smem.group(1)) if smem else 0
     filt = shutil.which("c++filt")
     if filt and entries:
         names = subprocess.run([filt], input="\n".join(e["kernel"] for e in entries),
@@ -747,14 +800,18 @@ def kernel_phase(inputs, h2d) -> tuple[dict, list]:
 
 
 def split_phase(case, h2d) -> dict:
-    """Phase 4, continued: what holds #1 and #2 back at the main shape (the
-    prepared ogbn-products store, F = 100, pinned host).  Each kernel on
-    its main input (#1 the frontier, #2 the dedup bucket) as the path
-    gives it, with every row forced to hit (slot = id mod H: the HBM side;
-    #1 then computes exactly ``torch.index_select(hot, 0, slot)``, timed
-    as its same-function library time) and with every row missing (slot
-    -1: the PCIe side, beside its bytes over the measured pinned copy
-    rate).  Then #1 on the frontier's miss rows alone, every occurrence
+    """Phase 4, continued: what holds the gathers back at the main shape
+    (the prepared ogbn-products store, F = 100, pinned host).  Each kernel
+    on its main input (#1 and #3 the frontier, #2 the dedup bucket) as the
+    path gives it, with every row forced to hit (slot = id mod H: the HBM
+    side; the kernel then computes exactly ``torch.index_select(hot, 0,
+    slot)``, timed as its same-function library time) and with every row
+    missing (slot -1: the PCIe side, beside its bytes over the measured
+    pinned copy rate).  #3's all-hit time must be within
+    ``SELECT_ALL_HIT_RATIO`` of #1's, each the median of device-only
+    timings taken in turns: a kernel that read the losing host row too
+    would pay the PCIe read of every row there.  Then #1 on the
+    frontier's miss rows alone, every occurrence
     against each distinct row once: per-row times that agree would mean
     the L2 keeps sysmem lines.  Then #2's in-kernel classification against
     ``classify_blocks``.  Every output equals ref.py."""
@@ -774,7 +831,8 @@ def split_phase(case, h2d) -> dict:
 
     rows = []
     for name, fn, (ik, pk) in (("cached_gather", tk.cached_gather, ("ids", "pos")),
-                               ("cached_gather_blocks", tk.cached_gather_blocks, ("uids", "upos"))):
+                               ("cached_gather_blocks", tk.cached_gather_blocks, ("uids", "upos")),
+                               ("cached_gather_select", tk.cached_gather_select, ("ids", "pos"))):
         idx = case[ik]
         for variant, pos in (("main", case[pk]),
                              ("all-hit", (idx % n_hot).to(torch.int32)),
@@ -792,6 +850,22 @@ def split_phase(case, h2d) -> dict:
                 f"{r['ms']:8.3f} ms  bound {r['bound_ms']:7.3f} ms  miss bytes / pinned rate "
                 f"{r['miss_bytes_over_h2d_ms']:8.3f} ms"
                 + (f"  index_select(hot) {r['library_ms']:.3f} ms" if "library_ms" in r else ""))
+    # The gate: device-only times of #1 and #3 on the all-hit input, in
+    # turns, and the median of each.
+    idx, pos = case["ids"], (case["ids"] % n_hot).to(torch.int32)
+    trials = {"cached_gather": [], "cached_gather_select": []}
+    for _ in range(SELECT_RATIO_TRIALS):
+        for name, fn in (("cached_gather", tk.cached_gather),
+                         ("cached_gather_select", tk.cached_gather_select)):
+            trials[name].append(device_ms(lambda: fn(hot, host, idx, pos), reps=5))
+    all_hit = {k: statistics.median(v) for k, v in trials.items()}
+    ratio = all_hit["cached_gather_select"] / all_hit["cached_gather"]
+    log(f"  #3 all-hit / #1 all-hit: {ratio:.3f} (at most {SELECT_ALL_HIT_RATIO}; medians of "
+        f"{SELECT_RATIO_TRIALS} device-only timings, #1 {all_hit['cached_gather']:.3f} ms, #3 "
+        f"{all_hit['cached_gather_select']:.3f} ms; reading every losing host row would take "
+        f"{1e3 * case['ids'].shape[0] * row / h2d:.3f} ms at the pinned rate)")
+    if ratio > SELECT_ALL_HIT_RATIO:
+        raise AssertionError(f"#3's all-hit gather takes {ratio:.3f}x #1's")
     occ = case["ids"][case["pos"] < 0]
     dist = torch.unique(occ).to(torch.int32)
     miss = {}
@@ -814,7 +888,8 @@ def split_phase(case, h2d) -> dict:
     counts = [int((want_mode == m).sum()) for m in range(3)]
     log(f"  #2 in-kernel modes equal classify_blocks: {counts[0]} per-row blocks, {counts[1]} hot "
         f"spans, {counts[2]} host spans of {len(want_mode)}")
-    return {"rows": rows, "miss_only": miss, "block_modes": counts}
+    return {"rows": rows, "select_all_hit_ratio": ratio, "select_all_hit_trials_ms": trials,
+            "miss_only": miss, "block_modes": counts}
 
 
 def main_path_phase(eng) -> dict:

@@ -4,7 +4,7 @@
 // src/repro/kernels/cached_gather/kernel.py:
 //   dci_cached_gather        <- _cached_gather_db      (per-row copy)
 //   dci_cached_gather_blocks <- _cached_gather_blocks  (row-block runs)
-//   dci_cached_gather_select <- cached_gather_select   (read both, select)
+//   dci_cached_gather_select <- cached_gather_select   (_select_kernel)
 //
 // Every kernel computes the same function:
 //   out[i] = hot[clamp(pos[i], 0, H-1)]   if pos[i] >= 0   (raw position)
@@ -42,13 +42,39 @@
 // them: on the pinned route the PCIe reads of the miss rows take most of
 // the time, and #1 reads a miss row once per occurrence; only the dedup
 // route (#2 on unique ids) reads each once.
-//
 // Both stage rows through registers.  A ring of shared-memory slots
 // filled and drained by bulk copies (cp.async.bulk with an mbarrier per
 // stage), which read pinned host memory over UVA too, measured no faster
 // for #2's spans on the H100 and slower from a device host table
-// (PERF.md), so it is not kept.  The select kernel (#3) keeps its first
-// design: it is the baseline.
+// (PERF.md), so it is not kept there.
+//
+// #3 computes what the TPU select kernel computes, not how: there the
+// BlockSpec index maps stage BOTH candidate tiles of every row (an index
+// map cannot depend on the data) and jnp.where keeps one, so the losing
+// row crosses the link too.  On Hopper an address may depend on the data
+// at no cost, so #3 selects each row's one source ADDRESS from the raw
+// position and never reads the losing row: its bytes are #1's, and so is
+// its bound.  It moves them through an asynchronous ring in shared memory
+// (cp.async, the LDGSTS path): a persistent grid whose warps stride over
+// chunks of rows, each chunk one stage of the warp's ring of `stages`
+// slots.  A stage holds up to 32 x unroll vectors: rows of up to 32
+// vectors whole (32 / n_vec rows per instruction, as copy_rows lays
+// them), a longer row alone in stages of 32 x unroll vectors.  A warp
+// issues one stage's copies, commits them as one group, waits until the
+// oldest group has landed (cp.async.wait_group stages - 1) and stores
+// that stage to the output, whose rows are contiguous, with coalesced
+// stores: stages - 1 stages stay in flight and no register is held for
+// them.  A lane whose copy falls past its row's end or past the
+// frontier's tail issues its cp.async with a source size of 0: it
+// zero-fills its slot and reads nothing.  The ids and slots of a warp's
+// next chunk are loaded while the current chunk is issued.  The copies
+// go through L1 (.ca; the L1-bypassing .cg read pinned host memory about
+// four times slower), so the wrapper sizes the rings (kernel.py,
+// _select_ring) to leave a quarter of the SM's L1 and shared memory to
+// L1.  cp.async copies only 4, 8 or 16 bytes, so 2- and 1-byte vectors
+// (bf16 rows of odd width, misaligned bases) take this kernel's register
+// instance, which copies each chunk with copy_rows: a rule of the row's
+// shape, not a fallback.
 //
 // Row offsets are computed in 64 bits: ogbn-papers100m at full size holds
 // 14.2 G feature elements, and reddit's main-shape output 2.6 GB.
@@ -58,6 +84,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -252,45 +280,175 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// #3: one warp per output row.  Like the TPU select kernel, it stages BOTH
-// candidate rows (through shared memory, one warp-wide chunk at a time)
-// and writes the one the raw position selects: twice the reads of #1.
+// #3's asynchronous copy of one vector into its ring slot.  It goes
+// through L1 (cp.async.ca) at every width: from pinned host memory the
+// L1-bypassing cp.async.cg, the usual choice for 16 bytes, read the miss
+// rows about four times slower on the H100 (PERF.md).  A dead lane passes
+// a source size of 0, which zero-fills the slot and reads nothing.
+template <typename V>
+__device__ __forceinline__ void cp_async(V* slot, const V* src, bool live) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8 || sizeof(V) == 16, "cp.async copies 4, 8 or 16 B");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(slot));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+               "n"(int(sizeof(V))), "r"(live ? int(sizeof(V)) : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's groups are in flight
+// (wait_group takes an immediate: pending = stages - 1, 1 to 7).
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    case 7: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+  }
+}
+
+constexpr int kMaxStages = 8;  // ring slots per warp of #3 (wait_group 7 at most)
+
+// #3: a persistent grid whose warps stride over chunks of chunk_rows
+// output rows (1 for rows longer than 32 vectors).  A chunk is `pieces`
+// stages of the warp's ring: up to 32 x unroll vectors each, the whole
+// chunk for short rows, 32 x unroll vectors of the one row otherwise.
+// Lane r < chunk_rows holds row r's source, chosen from the raw position;
+// a stage's vector (u, lane) is row r, vector k of the chunk:
+//   short rows: r = u * (32 / n_vec) + lane / n_vec, k = lane % n_vec;
+//   long rows:  r = 0, k = piece * 32 * unroll + u * 32 + lane.
+// Each lane stores back from the ring exactly the slots it filled.  V of
+// 2 or 1 bytes (which cp.async cannot copy): each chunk through
+// registers with copy_rows, and no ring.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
     gather_select_kernel(const char* __restrict__ hot, const char* __restrict__ host,
                          const int32_t* __restrict__ idx, const int32_t* __restrict__ pos,
                          char* __restrict__ out, int64_t s, int64_t row_bytes, int64_t n_hot,
-                         int64_t n_host) {
-  __shared__ V stage[kWarpsPerCta][2][kWarp];
-  const int warp = threadIdx.x / kWarp;
+                         int64_t n_host, int chunk_rows, int unroll, int stages) {
+  extern __shared__ __align__(16) unsigned char ring_smem[];
   const int lane = threadIdx.x % kWarp;
-  const int64_t row = int64_t(blockIdx.x) * kWarpsPerCta + warp;
-  if (row >= s) return;
-  const int64_t p = pos[row];
-  const int64_t i = idx[row];
-  const V* hs = reinterpret_cast<const V*>(hot + clamp_row(p, n_hot) * row_bytes);
-  const V* ms = reinterpret_cast<const V*>(host + clamp_row(i, n_host) * row_bytes);
-  V* d = reinterpret_cast<V*>(out + row * row_bytes);
-  const int pick = p >= 0 ? 0 : 1;
-  const int64_t n_vec = row_bytes / int64_t(sizeof(V));
-  for (int64_t k0 = 0; k0 < n_vec; k0 += kWarp) {
-    const int64_t k = k0 + lane;
-    if (k < n_vec) {
-      stage[warp][0][lane] = hs[k];
-      stage[warp][1][lane] = ms[k];
+  const int warp = threadIdx.x / kWarp;
+  const int n_vec = int(row_bytes / int64_t(sizeof(V)));
+  const int64_t n_chunks = (s + chunk_rows - 1) / chunk_rows;
+  const int64_t stride = int64_t(gridDim.x) * kWarpsPerCta;
+  const int64_t first = int64_t(blockIdx.x) * kWarpsPerCta + warp;
+  if (first >= n_chunks) return;
+  const int my_row = min(lane, chunk_rows - 1);
+  int32_t p = 0, i = 0;  // this lane's row of the next chunk to issue
+  if (first * chunk_rows + my_row < s) {
+    p = pos[first * chunk_rows + my_row];
+    i = idx[first * chunk_rows + my_row];
+  }
+  // The select on the address: one source per row, the loser never read.
+  auto source = [&]() {
+    return reinterpret_cast<unsigned long long>(
+        p >= 0 ? hot + min(int64_t(p), n_hot - 1) * row_bytes
+               : host + clamp_row(i, n_host) * row_bytes);
+  };
+  auto load_next = [&](int64_t c) {
+    const int64_t next = (c + stride) * chunk_rows + my_row;
+    if (c + stride < n_chunks && next < s) {
+      p = pos[next];
+      i = idx[next];
     }
-    __syncwarp();
-    if (k < n_vec) d[k] = stage[warp][pick][lane];
-    __syncwarp();
+  };
+  auto rows_of = [&](int64_t c) { return int(min(int64_t(chunk_rows), s - c * chunk_rows)); };
+
+  if constexpr (sizeof(V) < 4) {
+    for (int64_t c = first; c < n_chunks; c += stride) {
+      const auto src = reinterpret_cast<const char*>(source());
+      char* dst = out + (c * chunk_rows + my_row) * row_bytes;
+      load_next(c);
+      copy_rows<V>(src, dst, rows_of(c), n_vec, lane);
+    }
+  } else {
+    const bool short_rows = n_vec <= kWarp;
+    const int per_load = short_rows ? kWarp / n_vec : 1;
+    const int sub = short_rows ? lane / n_vec : 0;
+    const int col = short_rows ? lane - sub * n_vec : lane;
+    const int stage_vecs = unroll * kWarp;
+    const int pieces = short_rows ? 1 : (n_vec + stage_vecs - 1) / stage_vecs;
+    // Instructions a stage of `rows` rows (piece `piece`) takes.
+    auto n_inst = [&](int rows, int piece) {
+      return short_rows ? (rows + per_load - 1) / per_load
+                        : min(unroll, (n_vec - piece * stage_vecs + kWarp - 1) / kWarp);
+    };
+    // Row r and vector k of a stage's vector (u, lane); live: k is in the row.
+    auto lane_of = [&](int u, int piece, int rows, int& r, int& k) {
+      r = short_rows ? u * per_load + sub : 0;
+      k = short_rows ? col : piece * stage_vecs + u * kWarp + lane;
+      return short_rows ? sub < per_load && r < rows : k < n_vec;
+    };
+    V* ring = reinterpret_cast<V*>(ring_smem) + int64_t(warp) * stages * stage_vecs;
+    const int64_t n_stages = ((n_chunks - 1 - first) / stride + 1) * pieces;
+    unsigned long long my_src = 0;
+    int64_t ic = first, dc = first;  // chunk being issued, being drained
+    int ip = 0, dp = 0, is = 0, ds = 0;  // their pieces and ring slots
+    for (int64_t t = 0; t < n_stages + stages - 1; ++t) {
+      if (t < n_stages) {
+        if (ip == 0) {
+          my_src = source();
+          load_next(ic);
+        }
+        const int rows = rows_of(ic);
+        const int nu = n_inst(rows, ip);
+        V* slot = ring + is * stage_vecs;
+        for (int u = 0; u < nu; ++u) {
+          int r, k;
+          const bool live = lane_of(u, ip, rows, r, k);
+          const auto row = reinterpret_cast<const V*>(__shfl_sync(kFull, my_src, min(r, rows - 1)));
+          cp_async(slot + u * kWarp + lane, row + (live ? k : 0), live);
+        }
+        if (++ip == pieces) {
+          ip = 0;
+          ic += stride;
+        }
+        is = is + 1 == stages ? 0 : is + 1;
+      }
+      cp_async_commit();  // an empty group past the last stage keeps the count
+      if (t >= stages - 1) {
+        cp_async_wait(stages - 1);  // the oldest stage has landed
+        __syncwarp();
+        const int rows = rows_of(dc);
+        const int nu = n_inst(rows, dp);
+        const V* slot = ring + ds * stage_vecs;
+        for (int u = 0; u < nu; ++u) {
+          int r, k;
+          const bool live = lane_of(u, dp, rows, r, k);
+          if (live)
+            reinterpret_cast<V*>(out + (dc * chunk_rows + r) * row_bytes)[k] = slot[u * kWarp + lane];
+        }
+        __syncwarp();
+        if (++dp == pieces) {
+          dp = 0;
+          dc += stride;
+        }
+        ds = ds + 1 == stages ? 0 : ds + 1;
+      }
+    }
   }
 }
 
-// The kernel a launch of `kind` (0: #1, 1: #2) and vector type V runs.
+// Dynamic shared memory of a #3 launch: each warp's ring of `stages`
+// slots of 32 x unroll vectors (none for 2- and 1-byte vectors).
+template <typename V>
+int select_smem(int unroll, int stages) {
+  return sizeof(V) >= 4 ? kWarpsPerCta * stages * unroll * kWarp * int(sizeof(V)) : 0;
+}
+
+// The kernel a launch of `kind` (0: #1, 1: #2, 2: #3) and vector type V runs.
 template <typename V>
 const void* kernel_of(int kind) {
   switch (kind) {
     case 0: return reinterpret_cast<const void*>(gather_rows_kernel<V>);
     case 1: return reinterpret_cast<const void*>(gather_blocks_kernel<V>);
+    case 2: return reinterpret_cast<const void*>(gather_select_kernel<V>);
     default: return nullptr;
   }
 }
@@ -304,6 +462,12 @@ const void* kernel_of(int kind, int vec_bytes) {
     case 1: return kernel_of<uint8_t>(kind);
     default: return nullptr;
   }
+}
+
+// Dynamic shared memory above the default 48 KB must be allowed per kernel.
+cudaError_t allow_smem(const void* fn, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 template <template <typename> class Launch, typename... Args>
@@ -346,10 +510,24 @@ template <typename V>
 struct LaunchSelect {
   static cudaError_t run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
                   char* out, int64_t s, int64_t row_bytes, int64_t n_hot, int64_t n_host,
-                  cudaStream_t stream) {
-    const unsigned grid = unsigned((s + kWarpsPerCta - 1) / kWarpsPerCta);
-    gather_select_kernel<V><<<grid, kThreads, 0, stream>>>(hot, host, idx, pos, out, s,
-                                                           row_bytes, n_hot, n_host);
+                  int chunk_rows, int unroll, int stages, unsigned grid, cudaStream_t stream) {
+    const int64_t n_vec = row_bytes / int64_t(sizeof(V));
+    const bool ring = sizeof(V) >= 4;  // else through registers
+    // A long row is a chunk alone; short rows fill at most one stage.
+    if (n_vec > kWarp ? chunk_rows != 1 : ring && chunk_rows > kWarp / n_vec * unroll)
+      return cudaErrorInvalidValue;
+    if (ring && (stages < 2 || stages > kMaxStages)) return cudaErrorInvalidValue;
+    const int smem = select_smem<V>(unroll, stages);
+    // Allowed once per size, not at every launch: the attribute call is
+    // host work of its own on a launch that takes a fraction of a ms.
+    static std::atomic<int> allowed{48 * 1024};
+    if (smem > allowed.load()) {
+      const cudaError_t err = allow_smem(reinterpret_cast<const void*>(gather_select_kernel<V>), smem);
+      if (err != cudaSuccess) return err;
+      allowed.store(smem);
+    }
+    gather_select_kernel<V><<<grid, kThreads, smem, stream>>>(
+        hot, host, idx, pos, out, s, row_bytes, n_hot, n_host, chunk_rows, unroll, stages);
     return cudaSuccess;
   }
 };
@@ -359,11 +537,15 @@ struct LaunchSelect {
 extern "C" {
 
 // CTAs of 256 threads that fit on one SM for a launch of `kind` (0: #1,
-// 1: #2) at vector width vec_bytes.
-int dci_gather_occupancy(int kind, int vec_bytes, int* ctas_per_sm) {
+// 1: #2, 2: #3) at vector width vec_bytes with smem_bytes of dynamic
+// shared memory (#3's ring; 0 for #1 and #2).
+int dci_gather_occupancy(int kind, int vec_bytes, int smem_bytes, int* ctas_per_sm) {
   const void* fn = kernel_of(kind, vec_bytes);
-  if (fn == nullptr) return int(cudaErrorInvalidValue);
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreads, 0));
+  if (fn == nullptr || smem_bytes < 0) return int(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(fn, smem_bytes);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, fn, kThreads,
+                                                           size_t(smem_bytes)));
 }
 
 int dci_cached_gather(const void* hot, const void* host, const void* idx, const void* pos,
@@ -383,11 +565,15 @@ int dci_cached_gather(const void* hot, const void* host, const void* idx, const 
 
 int dci_cached_gather_select(const void* hot, const void* host, const void* idx,
                              const void* pos, void* out, long long s, long long row_bytes,
-                             long long n_hot, long long n_host, int vec_bytes, void* stream) {
+                             long long n_hot, long long n_host, int vec_bytes, int chunk_rows,
+                             int unroll, int stages, int grid, void* stream) {
+  if (chunk_rows < 1 || chunk_rows > kWarp || unroll < 1 || grid < 1)
+    return int(cudaErrorInvalidValue);
   return dispatch<LaunchSelect>(vec_bytes, static_cast<const char*>(hot),
                                 static_cast<const char*>(host), static_cast<const int32_t*>(idx),
                                 static_cast<const int32_t*>(pos), static_cast<char*>(out),
                                 int64_t(s), int64_t(row_bytes), int64_t(n_hot), int64_t(n_host),
+                                chunk_rows, unroll, stages, unsigned(grid),
                                 static_cast<cudaStream_t>(stream));
 }
 

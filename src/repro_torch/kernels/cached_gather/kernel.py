@@ -10,8 +10,10 @@ one Pallas TPU kernel of the reference's
   :func:`cached_gather_blocks`  ``_cached_gather_blocks`` — blocks of
                                 ``row_block`` rows that are one contiguous
                                 hit or miss run are copied as one span
-  :func:`cached_gather_select`  ``cached_gather_select`` — reads both
-                                candidate rows and selects (the baseline)
+  :func:`cached_gather_select`  ``cached_gather_select`` — the select
+                                made on each row's source address, so the
+                                losing candidate is never read; rows move
+                                through a ``cp.async`` ring in shared memory
 
 All three return ``out[i] = hot[pos[i]]`` when ``pos[i] >= 0`` (the raw
 position) and ``host[idx[i]]`` otherwise, with ids and slots clamped into
@@ -30,8 +32,13 @@ rows (a longer row alone, by all 32 lanes), and a miss warp the misses
 among 32 rows at a time.  A warp of #2 takes one row block at a time,
 classifies it with warp votes by the reference's rule (the kernel does
 what :func:`classify_blocks` states), and copies a run as one span and
-any other block row by row.  Both stage rows through registers.  The
-source note in the ``.cu`` file says more.
+any other block row by row.  Both stage rows through registers.  #3
+runs the same persistent grid; its warps stride over chunks of rows
+(:func:`_select_ring`: a chunk is one stage of a warp's ring in shared
+memory), issue each stage's ``cp.async`` copies, keep ``stages - 1``
+stages in flight and store the oldest with coalesced stores; 2- and
+1-byte vectors, which ``cp.async`` cannot copy, go through registers in
+the same kernel.  The source note in the ``.cu`` file says more.
 
 Routing: on CPU tensors a wrapper computes the plain version
 (``ref.py``); with the hot table on a CUDA device it launches its kernel
@@ -70,7 +77,14 @@ ROW_BLOCK = 8  # default rows per block in the row-block variant
 WARPS_PER_CTA = 8  # kThreads / 32
 MISS_WARPS = 2  # warps of each #1 CTA that copy only the miss rows of short rows
 UNROLL = 8  # kUnroll: load instructions a warp issues before it stores
-KIND_ROWS, KIND_BLOCKS = 0, 1  # dci_gather_occupancy's kinds
+KIND_ROWS, KIND_BLOCKS, KIND_SELECT = 0, 1, 2  # dci_gather_occupancy's kinds
+# #3's rings: the eight warps of a CTA take 192 KB of an H100 SM's 256 KB
+# of L1 and shared memory, so one CTA fits an SM and the rest stays L1,
+# which cp.async.ca passes through (rings of 224 KB per SM, or smaller
+# stages, read pinned rows more slowly: PERF.md).
+SELECT_RING_BYTES = 196_608
+SELECT_STAGE_BYTES = 8192  # one stage of a warp's ring: 32 x unroll vectors
+MAX_STAGES = 8  # kMaxStages: cp.async.wait_group waits for 7 at most
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,9 +96,9 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dci_cached_gather.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, i, i, i, p]
-    lib.dci_cached_gather_select.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, p]
+    lib.dci_cached_gather_select.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p]
     lib.dci_cached_gather_blocks.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, ll, i, i, p]
-    lib.dci_gather_occupancy.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.dci_gather_occupancy.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.dci_host_device_pointer.argtypes = [p, ctypes.POINTER(ctypes.c_void_p)]
     for fn in (
         lib.dci_cached_gather,
@@ -174,11 +188,36 @@ def _miss_warps(row_bytes: int, vec: int, host_on_card: bool) -> int:
     return MISS_WARPS if row_bytes // vec <= 32 and not host_on_card else 0
 
 
+def _select_ring(row_bytes: int, vec: int) -> tuple[int, int, int]:
+    """``(chunk_rows, unroll, stages)`` of #3.  A stage is ``32 * unroll``
+    vectors, ``SELECT_STAGE_BYTES``; a chunk of rows of up to 32 vectors
+    fills one stage (``32 // n_vec`` rows per instruction, at most 32
+    rows: one lane holds each row's source), a longer row is a chunk
+    alone, in ``ceil(n_vec / (32 * unroll))`` stages.  ``stages`` is as
+    many as the rings of a CTA's eight warps fit in ``SELECT_RING_BYTES``,
+    at most ``MAX_STAGES``.  A 2- or 1-byte vector takes no ring
+    (``stages`` 0): each chunk, as many rows as a warp of #1 takes, goes
+    through registers."""
+    n_vec = row_bytes // vec
+    if vec < 4:
+        return _rows_per_warp(row_bytes, vec), UNROLL, 0
+    unroll = SELECT_STAGE_BYTES // (32 * vec)
+    rows = min(32, 32 // n_vec * unroll) if n_vec <= 32 else 1
+    stages = min(MAX_STAGES, SELECT_RING_BYTES // (WARPS_PER_CTA * SELECT_STAGE_BYTES))
+    return rows, unroll, stages
+
+
+def _select_smem(vec: int, unroll: int, stages: int) -> int:
+    """Dynamic shared memory of a #3 launch (``select_smem`` in the
+    ``.cu``): every warp's ring."""
+    return WARPS_PER_CTA * stages * unroll * 32 * vec if vec >= 4 else 0
+
+
 def _grid(work: int, sm_count: int, ctas_per_sm: int, warps: int = WARPS_PER_CTA) -> int:
     """CTAs of a persistent launch over ``work`` items for ``warps`` warps
-    of each CTA (chunks of rows for #1's hit warps, row blocks for #2):
-    every CTA the card holds at once, or fewer when the work does not fill
-    them."""
+    of each CTA (chunks of rows for #1's hit warps and for #3, row blocks
+    for #2): every CTA the card holds at once, or fewer when the work does
+    not fill them."""
     return max(1, min(sm_count * ctas_per_sm, -(-work // warps)))
 
 
@@ -188,9 +227,9 @@ def _sm_count(device_index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _ctas_per_sm(kind: int, vec: int) -> int:
+def _ctas_per_sm(kind: int, vec: int, smem: int = 0) -> int:
     n = ctypes.c_int()
-    _check_status(load_library().dci_gather_occupancy(kind, vec, ctypes.byref(n)),
+    _check_status(load_library().dci_gather_occupancy(kind, vec, smem, ctypes.byref(n)),
                   "cudaOccupancyMaxActiveBlocksPerMultiprocessor")
     if n.value < 1:
         raise RuntimeError(f"no CTA of gather kind {kind} fits on an SM")
@@ -252,9 +291,10 @@ def cached_gather_select(
     indices: torch.Tensor,
     positions: torch.Tensor,
 ) -> torch.Tensor:
-    """Two-source gather that reads BOTH candidate rows and selects — the
-    port of the reference's select kernel, and the baseline the other two
-    are timed against."""
+    """Two-source gather, the port of the reference's select kernel with
+    the select made on each row's source address: a persistent grid whose
+    warps move chunks of rows through a ``cp.async`` ring in shared memory
+    (:func:`_select_ring`), each row from its winning source only."""
     _validate(hot_table, host_table, indices, positions)
     if not _on_cuda(hot_table, host_table, indices, positions):
         return cached_gather_ref(hot_table, host_table, indices, positions)
@@ -263,9 +303,14 @@ def cached_gather_select(
     idx, pos, out, row_bytes, host_ptr, vec, stream = _launch_args(
         hot_table, host_table, indices, positions
     )
+    rows, unroll, stages = _select_ring(row_bytes, vec)
+    smem = _select_smem(vec, unroll, stages)
+    grid = _grid(-(-idx.shape[0] // rows), _sm_count(hot_table.device.index),
+                 _ctas_per_sm(KIND_SELECT, vec, smem))
     status = load_library().dci_cached_gather_select(
         hot_table.data_ptr(), host_ptr, idx.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        idx.shape[0], row_bytes, hot_table.shape[0], host_table.shape[0], vec, stream,
+        idx.shape[0], row_bytes, hot_table.shape[0], host_table.shape[0], vec, rows, unroll,
+        stages, grid, stream,
     )
     _check_status(status, "dci_cached_gather_select launch")
     cached_gather_select.launches += 1

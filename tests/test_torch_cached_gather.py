@@ -309,3 +309,151 @@ def test_grid_at_the_main_shape():
     assert tk._grid(-(-1_081_344 // rows), 132, 4, 8) == 528
     assert tk._grid(262_144 // 8, 132, 4) == 528
     assert tk._grid(3, 132, 4) == 1
+
+
+@pytest.mark.parametrize(
+    "row_bytes,vec,ring",
+    [
+        (400, 16, (16, 16, 3)),  # ogbn-products rows: sixteen rows fill a stage
+        (512, 16, (16, 16, 3)),
+        (64, 16, (32, 16, 3)),  # eight rows per instruction, 32 lanes' rows at most
+        (16, 16, (32, 16, 3)),
+        (200, 8, (32, 32, 3)),  # F = 100 bf16
+        (2408, 8, (1, 32, 3)),  # reddit rows: a chunk alone, 301 vectors of a stage's 1,024
+        (9000, 8, (1, 32, 3)),  # F = 4500 bf16: 1,125 vectors, two stages
+        (10000, 16, (1, 16, 3)),  # F = 2500 f32: 625 vectors, two stages
+        (1204, 4, (1, 64, 3)),  # F = 602 bf16
+        (20004, 4, (1, 64, 3)),  # F = 10002 bf16: 5,001 vectors, three stages
+        (4, 4, (32, 64, 3)),  # F = 1 f32
+        (6, 2, (32, 8, 0)),  # F = 3 bf16: no cp.async of 2 bytes, registers
+        (2, 2, (32, 8, 0)),  # F = 1 bf16
+        (3, 1, (32, 8, 0)),
+        (1206, 2, (1, 8, 0)),  # F = 603 bf16: a long row through registers
+    ],
+)
+def test_select_ring_fits_shared_memory(row_bytes, vec, ring):
+    """#3's ring: a stage is SELECT_STAGE_BYTES, 32 lanes x unroll
+    vectors; a chunk of short rows fills at most one stage, with one lane
+    to hold each row's source; a longer row is a chunk alone; the rings
+    of a CTA's eight warps fit in SELECT_RING_BYTES, within the 227 KB a
+    CTA may use and, with the 1 KB that CUDA reserves per CTA, in an H100 SM's 228
+    KB of shared memory.  2- and 1-byte vectors take no ring."""
+    assert tk._select_ring(row_bytes, vec) == ring
+    rows, unroll, stages = ring
+    n_vec = row_bytes // vec
+    smem = tk._select_smem(vec, unroll, stages)
+    assert 1 <= rows <= 32
+    if n_vec > 32:
+        assert rows == 1
+    if vec < 4:
+        assert stages == 0 and smem == 0 and rows == tk._rows_per_warp(row_bytes, vec)
+        return
+    assert 32 * unroll * vec == tk.SELECT_STAGE_BYTES
+    assert 2 <= stages <= tk.MAX_STAGES
+    if n_vec <= 32:
+        assert -(-rows // (32 // n_vec)) <= unroll
+    assert smem == tk.WARPS_PER_CTA * stages * tk.SELECT_STAGE_BYTES <= tk.SELECT_RING_BYTES
+    assert smem <= 232_448 and smem + 1024 <= 233_472
+
+
+def _select_stage(c, piece, s, n_vec, chunk_rows, unroll):
+    """The live lanes of one stage of #3, as the kernel lays it out: a
+    list of (ring slot offset, output row, vector of the row)."""
+    short = n_vec <= 32
+    per_load = 32 // n_vec if short else 1
+    rows = min(chunk_rows, s - c * chunk_rows)
+    base = piece * 32 * unroll
+    n_inst = -(-rows // per_load) if short else min(unroll, -(-(n_vec - base) // 32))
+    lanes = []
+    for u in range(n_inst):
+        for lane in range(32):
+            if short:
+                r, k = u * per_load + lane // n_vec, lane % n_vec
+                live = lane // n_vec < per_load and r < rows
+            else:
+                r, k = 0, base + u * 32 + lane
+                live = k < n_vec
+            if live:
+                lanes.append((u * 32 + lane, c * chunk_rows + r, k))
+    return lanes
+
+
+def _simulate_select(s, row_bytes, vec, sm_count, ctas_per_sm):
+    """Every (row, vector) the kernel's warps store, counted, walking each
+    warp's stride loop as the kernel does: the issue side and the drain
+    side keep their own chunk, piece and ring slot, and the drain of a
+    stage must find in its slot what the issue side put there."""
+    chunk_rows, unroll, stages = tk._select_ring(row_bytes, vec)
+    n_vec = row_bytes // vec
+    stored = np.zeros((s, n_vec), np.int64)
+    n_chunks = -(-s // chunk_rows)
+    grid = tk._grid(n_chunks, sm_count, ctas_per_sm)
+    stride = grid * tk.WARPS_PER_CTA
+    if stages == 0:  # registers: each chunk's rows whole
+        for first in range(stride):
+            for c in range(first, n_chunks, stride):
+                stored[c * chunk_rows : (c + 1) * chunk_rows] += 1
+        return stored, grid
+    pieces = 1 if n_vec <= 32 else -(-n_vec // (32 * unroll))
+    for first in range(min(stride, n_chunks)):
+        ring = [None] * stages
+        n_stages = ((n_chunks - 1 - first) // stride + 1) * pieces
+        ic = dc = first
+        ip = dp = slot_i = slot_d = 0
+        for t in range(n_stages + stages - 1):
+            if t < n_stages:
+                ring[slot_i] = _select_stage(ic, ip, s, n_vec, chunk_rows, unroll)
+                ip += 1
+                if ip == pieces:
+                    ip, ic = 0, ic + stride
+                slot_i = (slot_i + 1) % stages
+            if t >= stages - 1:
+                lanes = _select_stage(dc, dp, s, n_vec, chunk_rows, unroll)
+                assert ring[slot_d] == lanes
+                assert len({off for off, _, _ in lanes}) == len(lanes) <= 32 * unroll
+                for _, r, k in lanes:
+                    stored[r, k] += 1
+                ring[slot_d] = None
+                dp += 1
+                if dp == pieces:
+                    dp, dc = 0, dc + stride
+                slot_d = (slot_d + 1) % stages
+        assert ring == [None] * stages  # every issued stage drained
+    return stored, grid
+
+
+@pytest.mark.parametrize("row_bytes,vec", [(400, 16), (2408, 8), (1204, 4), (10000, 16),
+                                           (20004, 4), (64, 16), (4, 4), (6, 2), (1206, 2)])
+def test_select_stride_stores_every_vector_once(row_bytes, vec):
+    """#3's persistent stride over chunks and its ring walk store every
+    vector of every output row exactly once, for S below, at and just
+    above one chunk and one grid of a small card, and S = 1."""
+    sm, ctas = 3, 2
+    chunk_rows = tk._select_ring(row_bytes, vec)[0]
+    grid_rows = sm * ctas * tk.WARPS_PER_CTA * chunk_rows
+    for s in sorted({1, chunk_rows - 1, chunk_rows, chunk_rows + 1, grid_rows - 1, grid_rows,
+                     grid_rows + 1, 2 * grid_rows + 3} - {0}):
+        stored, grid = _simulate_select(s, row_bytes, vec, sm, ctas)
+        assert (stored == 1).all(), s
+        assert 1 <= grid <= sm * ctas
+
+
+def test_occupancy_kinds_match_the_source():
+    """The kinds the wrappers pass to dci_gather_occupancy name the
+    kernels kernel_of maps them to in the .cu source, and the launch
+    constants the wrapper mirrors equal the source's."""
+    import re
+
+    from repro_torch.kernels._build import CSRC
+
+    src = (CSRC / "cached_gather.cu").read_text()
+    kinds = dict(re.findall(r"case (\d): return reinterpret_cast<const void\*>\((\w+)<V>\)", src))
+    assert kinds == {
+        str(tk.KIND_ROWS): "gather_rows_kernel",
+        str(tk.KIND_BLOCKS): "gather_blocks_kernel",
+        str(tk.KIND_SELECT): "gather_select_kernel",
+    }
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+)", src))
+    assert int(const["kThreads"]) // 32 == tk.WARPS_PER_CTA
+    assert int(const["kUnroll"]) == tk.UNROLL
+    assert int(const["kMaxStages"]) == tk.MAX_STAGES

@@ -148,11 +148,12 @@ def _vec(row_bytes, hot, host):
 
 @pytest.mark.parametrize("host_on", ["pinned", "device"])
 @pytest.mark.parametrize("f", [100, 602])
-@pytest.mark.parametrize("kind", ["db", "blocks"])
+@pytest.mark.parametrize("kind", ["db", "blocks", "select"])
 def test_ragged_tails_of_the_persistent_grid(cuda, kind, f, host_on):
     """S below, at and just above one warp's rows and one full persistent
     grid (for #1 with short rows from a pinned table, of its hit warps and
-    of its miss warps; otherwise every warp takes both kinds), and S = 1:
+    of its miss warps; otherwise every warp takes both kinds; for #3, of
+    its chunks of rows, one ring stage each for short rows), and S = 1:
     every tail of the stride loops."""
     h, n, row_block = 300, 5000, tk.ROW_BLOCK
     hot, host = _tables(cuda, h, n, f, torch.float32, host_on)
@@ -162,6 +163,9 @@ def test_ragged_tails_of_the_persistent_grid(cuda, kind, f, host_on):
     if kind == "db":  # hit warps' chunks, and miss warps' chunks of 32 rows
         per_warp = tk._rows_per_warp(row_bytes, vec)
         ctas = tk._ctas_per_sm(tk.KIND_ROWS, vec)
+    elif kind == "select":
+        per_warp, unroll, stages = tk._select_ring(row_bytes, vec)
+        ctas = tk._ctas_per_sm(tk.KIND_SELECT, vec, tk._select_smem(vec, unroll, stages))
     else:
         per_warp = row_block
         ctas = tk._ctas_per_sm(tk.KIND_BLOCKS, vec)
@@ -177,6 +181,59 @@ def test_ragged_tails_of_the_persistent_grid(cuda, kind, f, host_on):
         out = KERNELS[kind](hot, host, idx, pos)
         torch.cuda.synchronize()
         assert torch.equal(out, cached_gather_ref(hot, host, idx, pos)), s
+
+
+@pytest.mark.parametrize("host_on", ["pinned", "device"])
+@pytest.mark.parametrize("dtype,f,stages_per_row", [(torch.float32, 602, 1), (torch.float32, 2500, 2),
+                                                    (torch.bfloat16, 4500, 2),
+                                                    (torch.bfloat16, 10002, 3)])
+def test_select_long_rows_in_ring_stages(cuda, dtype, f, stages_per_row, host_on):
+    """#3 on rows longer than 32 vectors, each a chunk alone: reddit's
+    2,408-byte rows (one stage of 8-byte vectors) and rows that take two
+    or three stages of the ring (f32 at 16-byte vectors, bf16 at 8 and 4),
+    for S = 1, a few rows and a grid's worth with a ragged tail."""
+    h, n = 300, 2000
+    hot, host = _tables(cuda, h, n, f, dtype, host_on)
+    row_bytes = f * hot.element_size()
+    vec = _vec(row_bytes, hot, host)
+    rows, unroll, stages = tk._select_ring(row_bytes, vec)
+    assert rows == 1 and stages >= 2
+    assert -(-(row_bytes // vec) // (32 * unroll)) == stages_per_row
+    for s in (1, 7, 3001):
+        idx, pos = _run_inputs(cuda, s, h, n, seed=s + f)
+        out = tk.cached_gather_select(hot, host, idx, pos)
+        torch.cuda.synchronize()
+        assert torch.equal(out, cached_gather_ref(hot, host, idx, pos)), s
+
+
+@pytest.mark.parametrize("host_on", ["pinned", "device"])
+@pytest.mark.parametrize("f", [1, 3])
+def test_select_two_byte_vectors(cuda, f, host_on):
+    """bf16 rows of odd width copy 2-byte vectors, which cp.async cannot:
+    #3's register instance, in the same kernel, equals ref.py."""
+    h, n = 64, 700
+    hot, host = _tables(cuda, h, n, f, torch.bfloat16, host_on)
+    assert _vec(2 * f, hot, host) == 2 and tk._select_ring(2 * f, 2)[2] == 0
+    for s in (1, 31, 33, 4099):
+        idx, pos = _run_inputs(cuda, s, h, n, seed=s * 3 + f)
+        before = tk.cached_gather_select.launches
+        out = tk.cached_gather_select(hot, host, idx, pos)
+        torch.cuda.synchronize()
+        assert tk.cached_gather_select.launches == before + 1
+        assert torch.equal(out, cached_gather_ref(hot, host, idx, pos)), s
+
+
+def test_select_counts_one_launch_per_call(cuda):
+    """cached_gather_select.launches rises by exactly one for each call
+    that launches (S > 0) and not at all for an empty frontier."""
+    hot, host = _tables(cuda, 12, 40, 100, torch.float32, "pinned")
+    idx, pos = _ids(cuda, 50, 12, 40, seed=3)
+    empty = idx[:0]
+    before = tk.cached_gather_select.launches
+    for i, p in [(idx, pos), (empty, empty), (idx[:1], pos[:1]), (idx, pos)]:
+        tk.cached_gather_select(hot, host, i, p)
+    torch.cuda.synchronize()
+    assert tk.cached_gather_select.launches == before + 3
 
 
 @pytest.mark.parametrize("host_on", ["pinned", "device"])
