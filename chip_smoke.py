@@ -74,7 +74,24 @@ whose errors is caught:
    seed; logits and hit counts must be identical, and the launch
    counters of kernels #1 and #2 (set to 0 just before each route and
    read just after) must be > 0;
-9. the CLI, once, as a subprocess, with ``--prefetch``.
+9. the CLI, as subprocesses: ``--use-kernel --prefetch``, ``--policy
+   rain`` and ``--mode layerwise --scale 0.01``;
+10. baselines: ``prepare("ducati", 256 MB)`` and ``prepare("rain")`` on
+   phase 3's dataset beside phase 3's ``dci``, with each ``prep_seconds``
+   and DUCATI's knapsack split; 8 batches of each on the kernel route at
+   depth 1 — DUCATI also with dedup, RAIN also on the table route and
+   with dedup requested (its report must say dedup off) — identical
+   logits and hit counts per policy, #1 (or #2 under dedup) launched;
+11. layer-wise: GraphSAGE 3x128 over all 2,449,029 nodes at chunk 4096 on
+   the ``dci`` pipeline, the kernel route at depth 2 twice and with
+   prefetch at the first run's Eq. 1 split — outputs ``[N, 47]`` and
+   feature / embedding hits bit-identical, lookups exactly ``N + E`` per
+   layer, #2 launched; #2's in-kernel block modes on every chunk's
+   index vector against ``classify_blocks``, and every chunk's gather
+   alone through #2 and #1 (pinned host table) and #2 (host table on
+   the card), timed with CUDA events; then the table route
+   against the kernel route at depth 1 at scale 0.1 (the host gather of
+   every miss row is slow at full size).
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -106,6 +123,9 @@ BATCH = 1024
 MAIN_ROWS = BATCH * 16 * 11 * 6  # 1,081,344 input-frontier rows per batch
 CACHE_BYTES = 256 * 10**6
 MAIN_BATCHES = 8
+BASELINE_BATCHES = 8
+LAYERWISE_CHUNK = 4096  # the reference CLI's default chunk
+LAYERWISE_CUT = 0.1  # the scale of the table-route layer-wise check
 SEG_SHAPE = (180_224, 5, 100)  # first GraphSAGE layer: 1024*16*11 dst nodes, fanout 5, F 100
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
@@ -965,24 +985,360 @@ def main_path_phase(eng) -> dict:
             "launches_per_batch": per_batch, "max_memory_allocated": peak}
 
 
+def counted_run(run, counters) -> tuple[object, dict]:
+    """``run()`` with every launch counter set to 0 just before it and read
+    just after it: ``(result, {kernel: launches})``."""
+    for fn in counters:
+        fn.launches = 0
+    result = run()
+    return result, {fn.__name__: fn.launches for fn in counters}
+
+
+def baselines_phase(ds, eng) -> dict:
+    """DUCATI and RAIN beside phase 3's DCI on the same dataset: their
+    preparation times and splits, then BASELINE_BATCHES batches of each on
+    the kernel route at depth 1 (DUCATI also with dedup, RAIN also on the
+    table route and with dedup requested, which RAIN turns off)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.policies import prepare
+    from repro_torch.kernels.cached_gather import kernel as tk
+
+    phase(f"10. baselines: DUCATI and RAIN beside DCI, {BASELINE_BATCHES} batches per route")
+    dci = eng.pipeline
+    kw = dict(total_cache_bytes=CACHE_BYTES, fanouts=FANOUTS, batch_size=BATCH, seed=SEED,
+              device="cuda")
+    pipes, prep_wall = {"dci": dci}, {}
+    for name in ("ducati", "rain"):
+        t0 = time.perf_counter()
+        pipes[name] = prepare(name, ds, **kw)
+        prep_wall[name] = time.perf_counter() - t0
+    d_alloc, c_alloc = pipes["ducati"].caches.allocation, dci.caches.allocation
+    prep = {name: p.prep_seconds for name, p in pipes.items()}
+    log(f"  prep_seconds: dci {prep['dci']:.4f}, ducati {prep['ducati']:.4f} (32 presampling "
+        f"batches), rain {prep['rain']:.4f}; DCI / DUCATI {prep['dci'] / prep['ducati']:.4f}; "
+        f"prepare() wall: ducati {prep_wall['ducati']:.1f} s, rain {prep_wall['rain']:.1f} s")
+    log(f"  DUCATI's knapsack: adj {d_alloc.adj_bytes} B, feat {d_alloc.feat_bytes} B "
+        f"({pipes['ducati'].caches.feat_cached_rows} hot rows, "
+        f"{pipes['ducati'].caches.adj_cached_elements} adj elements); DCI's Eq. 1: adj "
+        f"{c_alloc.adj_bytes} B, feat {c_alloc.feat_bytes} B; RAIN caches nothing, "
+        f"{len(pipes['rain'].batch_order)} batches in LSH order")
+    routes = {
+        "ducati": {"kernel_d1": EngineConfig(use_kernel=True, pipeline_depth=1),
+                   "kernel_dedup_d1": EngineConfig(use_kernel=True, dedup=True,
+                                                   pipeline_depth=1)},
+        "rain": {"kernel_d1": EngineConfig(use_kernel=True, pipeline_depth=1),
+                 "kernel_dedup_requested_d1": EngineConfig(use_kernel=True, dedup=True,
+                                                           pipeline_depth=1),
+                 "table_d1": EngineConfig(use_kernel=False, pipeline_depth=1)},
+    }
+    counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
+    reports, launches = {}, {}
+    try:
+        for name, by_label in routes.items():
+            eng.pipeline = pipes[name]
+            outs, hits = {}, {}
+            for label, cfg in by_label.items():
+                rep, counts = counted_run(
+                    lambda: eng.run(config=cfg, max_batches=BASELINE_BATCHES,
+                                    collect_outputs=True), counters)
+                key = f"{name}_{label}"
+                launches[key] = counts
+                out = np.stack(eng.last_outputs)
+                if out.shape != (BASELINE_BATCHES, BATCH, ds.spec.num_classes) or not (
+                        np.isfinite(out).all()):
+                    raise AssertionError(f"{key}: logits of shape {out.shape}")
+                outs[label] = out
+                hits[label] = (rep.adj_hits, rep.adj_lookups, rep.feat_hits, rep.feat_lookups)
+                reports[key] = rep.summary()
+                log(f"  {key:32s} sample {rep.sample_seconds:.4f} s  feature "
+                    f"{rep.feature_seconds:.4f} s  compute {rep.compute_seconds:.4f} s  total "
+                    f"{rep.total_seconds:.4f} s  adj hit {rep.adj_hit_rate:.4f}  feat hit "
+                    f"{rep.feat_hit_rate:.4f}  ({'reuse hits' if name == 'rain' else 'hits'} "
+                    f"{rep.feat_hits} of {rep.feat_lookups})  dedup {rep.dedup}  launches {counts}")
+                kernel = "cached_gather_blocks" if rep.dedup else "cached_gather"
+                if cfg.use_kernel and counts[kernel] == 0:
+                    raise AssertionError(f"{key}: {kernel} was never launched: {counts}")
+                if name == "rain" and rep.dedup:
+                    raise AssertionError(f"{key}: RAIN's report has dedup on")
+            first = next(iter(outs))
+            for label in outs:
+                if not np.array_equal(outs[label], outs[first]) or hits[label] != hits[first]:
+                    raise AssertionError(f"{name}: {label} differs from {first}")
+            log(f"  {name}: logits and hit counts identical across {sorted(outs)}")
+    finally:
+        eng.pipeline = dci
+    del pipes
+    torch.cuda.empty_cache()
+    return {"prep_seconds": prep, "prepare_wall_s": prep_wall,
+            "dci_over_ducati": prep["dci"] / prep["ducati"],
+            "ducati_split": {"adj_bytes": d_alloc.adj_bytes, "feat_bytes": d_alloc.feat_bytes},
+            "dci_split": {"adj_bytes": c_alloc.adj_bytes, "feat_bytes": c_alloc.feat_bytes},
+            "reports": reports, "launches": launches}
+
+
+def layerwise_gathers(ds, pipe, alloc, params) -> dict:
+    """Every layer-wise chunk's gather alone, per layer input: layer 0
+    against the re-filled feature cache, layers 1-2 against an embedding
+    cache of the same position map over a zero spill table (the rows'
+    values do not change what moves).  #2's in-kernel block modes on each
+    chunk against ``classify_blocks``; then, with CUDA events, all chunks
+    back to back through #2 and #1 from the pinned host table, and
+    through #2 with the host table on the card (its PCIe side removed);
+    layer 0's ``forward_layer`` per chunk (:func:`forward_sums`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph.features import (build_embedding_cache, refresh_feature_cache)
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+    from repro_torch.runtime.layerwise import layerwise_access_counts, plan_chunks
+
+    n = ds.num_nodes
+    counts = layerwise_access_counts(ds.graph)
+    plan = plan_chunks(ds.graph, LAYERWISE_CHUNK, device="cuda")
+    out = {}
+    inputs = (
+        ("layer 0 (feature cache)",
+         lambda: refresh_feature_cache(pipe.caches.store, counts, alloc.feat_bytes)[0]),
+        ("layers 1-2 (embedding cache)",
+         lambda: build_embedding_cache(torch.zeros((n, 128), pin_memory=True), counts,
+                                       alloc.embed_bytes, device="cuda")),
+    )
+    for label, make_store in inputs:
+        store = make_store()
+        hot, host = store.hot_table, store.host_table
+        pad_id = max(store.pad_node_id(), 0)
+        ids = [torch.where(spec.live, spec.device_ids, pad_id) for spec in plan.chunks]
+        pos = [store.position_map[i.to(torch.int64)] for i in ids]
+        total = torch.zeros(3, dtype=torch.int64, device="cuda")
+        for i, p in zip(ids, pos):
+            want, _ = tk.classify_blocks(i, p, hot.shape[0], n, ROW_BLOCK)
+            modes = torch.full_like(want, -1)
+            tk._launch_blocks(hot, host, i, p, ROW_BLOCK, modes=modes)
+            if not torch.equal(modes, want):
+                raise AssertionError(f"#2's in-kernel modes differ from classify_blocks ({label})")
+            total += torch.bincount(modes.to(torch.int64), minlength=3)
+        modes3 = total.tolist()
+        host_dev = host.to("cuda")
+        rows = sum(int(i.shape[0]) for i in ids)
+        misses = sum(int((p < 0).sum()) for p in pos)
+
+        def every_chunk(kernel, table):
+            return lambda: [kernel(hot, table, i, p) for i, p in zip(ids, pos)]
+
+        times = {
+            "blocks_pinned_ms": cuda_ms(every_chunk(tk.cached_gather_blocks, host), reps=1),
+            "rows_pinned_ms": cuda_ms(every_chunk(tk.cached_gather, host), reps=1),
+            "blocks_on_card_ms": cuda_ms(every_chunk(tk.cached_gather_blocks, host_dev), reps=1),
+        }
+        row = host.shape[1] * host.element_size()
+        out[label] = dict(zip(("per_row", "hot_span", "host_span"), modes3), rows=rows,
+                          miss_rows=misses, row_bytes=row, **times)
+        log(f"  {label}, {plan.num_chunks} chunks, {rows} index slots, {misses} miss rows of "
+            f"{row} B: #2's block modes {modes3[0]} mixed (row by row), {modes3[1]} all-hit "
+            f"spans, {modes3[2]} all-miss spans of {sum(modes3)}; every chunk's gather alone "
+            f"(CUDA events): #2 {times['blocks_pinned_ms']:.1f} ms, #1 "
+            f"{times['rows_pinned_ms']:.1f} ms, #2 with the host table on the card "
+            f"{times['blocks_on_card_ms']:.1f} ms; miss bytes over the time of #2 "
+            f"{misses * row / (times['blocks_pinned_ms'] / 1e3) / 1e9:.2f} GB/s")
+        if label.startswith("layer 0"):
+            out[label]["forward"] = forward_sums(ds, plan, params, hot, host_dev, ids, pos)
+        del store, hot, host, host_dev, ids, pos
+        torch.cuda.empty_cache()
+    return out
+
+
+def forward_sums(ds, plan, params, hot, host_dev, ids, pos) -> dict:
+    """Layer 0's ``forward_layer`` on every chunk, CUDA events around each
+    call: with the plan's two-level neighbor sum (pieces of at most
+    ceil(sqrt(max degree)) rows, live edges only), and with one
+    ``segment_reduce`` over the padded bucket, whose per-thread loop is a
+    whole segment long (a hub's in-degree, or the pad segment).  Each is
+    held to the same layer in float64: the two-level sum must stay within
+    1e-4 of each chunk's largest output (the one-level sum's distance is
+    printed beside it: both orders round differently)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.models.gnn.models import forward_layer
+
+    deg = np.diff(ds.graph.col_ptr)
+    size = plan.chunk_size
+    p64 = {k: v.double() for k, v in params[0].items()}
+    ms = {"two_level_ms": 0.0, "one_level_ms": 0.0}
+    err = {"two_level_ms": 0.0, "one_level_ms": 0.0}
+    kw = dict(model="graphsage", num_dst=size, relu=True)
+    for spec, i, p in zip(plan.chunks, ids, pos):
+        feats = tk.cached_gather_blocks(hot, host_dev, i, p)
+        one = np.zeros(size + 1, np.int64)
+        one[: spec.cnt] = deg[spec.lo : spec.lo + spec.cnt]
+        one[size] = feats.shape[0] - size - spec.n_edges
+        one = (torch.from_numpy(one).to("cuda"),)
+        with torch.inference_mode():
+            f64 = feats.double()
+            want = forward_layer(p64, f64[:size], f64[size:], spec.seg_ids, spec.degrees.double(),
+                                 levels=one, **kw)
+            scale = max(want.abs().max().item(), 1.0)
+            del f64
+            for label, nbr, levels in (
+                    ("two_level_ms", feats[size : size + spec.n_edges], spec.levels),
+                    ("one_level_ms", feats[size:], one)):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                got = forward_layer(params[0], feats[:size], nbr, spec.seg_ids, spec.degrees,
+                                    levels=levels, **kw)
+                stop.record()
+                stop.synchronize()
+                ms[label] += start.elapsed_time(stop)
+                err[label] = max(err[label], (got.double() - want).abs().max().item() / scale)
+    if err["two_level_ms"] > 1e-4:
+        raise AssertionError(f"the two-level neighbor sum is {err['two_level_ms']:.2e} of a "
+                             "chunk's largest output from float64")
+    log(f"  layer 0's forward_layer over {plan.num_chunks} chunks (CUDA events): two-level sum "
+        f"{ms['two_level_ms']:.1f} ms, one segment_reduce over the padded bucket "
+        f"{ms['one_level_ms']:.1f} ms; largest distance from float64 over a chunk's largest "
+        f"output: {err['two_level_ms']:.2e} and {err['one_level_ms']:.2e}")
+    return {**ms, "two_level_err": err["two_level_ms"], "one_level_err": err["one_level_ms"]}
+
+
+def layerwise_phase(ds, eng) -> dict:
+    """Layer-wise GraphSAGE 3x128 over every node at chunk 4096 on phase
+    3's DCI pipeline: the kernel route at depth 2 twice and with prefetch,
+    at one allocation (the first run's Eq. 1 split), bit-identical; then
+    the table route against the kernel route at depth 1 at scale 0.1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.graph.datasets import load_dataset
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+    from repro_torch.runtime.layerwise import run_layerwise
+
+    phase(f"11. layer-wise: GraphSAGE 3x128 over all {ds.num_nodes} nodes, chunk "
+          f"{LAYERWISE_CHUNK}")
+    counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
+    n, e = ds.num_nodes, ds.graph.num_edges
+
+    def runs(engine, routes):
+        """Each route's report and launches; the first through the engine
+        (its Eq. 1 split), the others through run_layerwise at that split."""
+        pipe, params = engine.pipeline, list(engine.model.layers)
+        reports, launches, first = {}, {}, None
+        for label, cfg in routes.items():
+            if first is None:
+                call = lambda: engine.run(config=cfg)  # noqa: E731
+            else:
+                call = lambda: run_layerwise(  # noqa: E731
+                    engine.dataset, pipe, params, model=engine.model_name,
+                    config=cfg.resolved(pipe, pipeline_depth=cfg.pipeline_depth),
+                    allocation=first.allocation)
+            t0 = time.perf_counter()
+            rep, counts = counted_run(call, counters)
+            wall = time.perf_counter() - t0
+            first = first or rep
+            reports[label], launches[label] = rep, counts
+            log(f"  {label:28s} gather {rep.gather_seconds:.4f} s  prefetch "
+                f"{rep.prefetch_seconds:.4f} s  compute {rep.compute_seconds:.4f} s  spill "
+                f"{rep.spill_seconds:.4f} s  fill {rep.fill_seconds:.4f} s  prep "
+                f"{rep.prep_seconds:.4f} s  total {rep.total_seconds:.4f} s  feat hit "
+                f"{rep.feat_hit_rate:.4f}  embed hit {rep.embed_hit_rate:.4f}  launches {counts}  "
+                f"(call {wall:.1f} s)")
+            if cfg.use_kernel and counts["cached_gather_blocks"] == 0:
+                raise AssertionError(f"{label}: #2 was never launched: {counts}")
+        base = next(iter(reports.values()))
+        if base.outputs.shape != (engine.dataset.num_nodes, 47) or not np.isfinite(
+                base.outputs).all():
+            raise AssertionError(f"layer-wise outputs of shape {base.outputs.shape}")
+        for label, rep in reports.items():
+            if not np.array_equal(rep.outputs, base.outputs):
+                raise AssertionError(f"layer-wise outputs of {label} differ")
+            got = (rep.feat_hits, rep.feat_lookups, rep.embed_hits, rep.embed_lookups)
+            if got != (base.feat_hits, base.feat_lookups, base.embed_hits, base.embed_lookups):
+                raise AssertionError(f"layer-wise hits of {label} differ: {got}")
+        log(f"  outputs {base.outputs.shape} and feature / embedding hits and lookups identical "
+            f"across {sorted(reports)}")
+        return reports, launches
+
+    torch.cuda.reset_peak_memory_stats()
+    lw = dict(mode="layerwise", chunk_size=LAYERWISE_CHUNK)
+    reports, launches = runs(eng, {
+        "kernel_d2": EngineConfig(use_kernel=True, pipeline_depth=2, **lw),
+        "kernel_d2_again": EngineConfig(use_kernel=True, pipeline_depth=2, **lw),
+        "kernel_prefetch_d2": EngineConfig(use_kernel=True, prefetch=True, pipeline_depth=2,
+                                           **lw),
+    })
+    peak = torch.cuda.max_memory_allocated()
+    base = reports["kernel_d2"]
+    if base.feat_lookups != n + e or base.embed_lookups != 2 * (n + e):
+        raise AssertionError(f"lookups {base.feat_lookups} / {base.embed_lookups}, expected "
+                             f"{n + e} per layer")
+    alloc = base.allocation
+    log(f"  lookups: {base.feat_lookups} on layer 0 (N + E = {n + e}) and {base.embed_lookups} "
+        f"on layers 1-2; Eq. 1 layer-wise split: feat {alloc.feat_bytes} B, embed "
+        f"{alloc.embed_bytes} B (feat share {alloc.feat_fraction:.4f}); max_memory_allocated "
+        f"{peak / 1e9:.2f} GB")
+    gathers = layerwise_gathers(ds, eng.pipeline, alloc, list(eng.model.layers))
+    # The table route gathers every miss row on the host: held to the
+    # kernel route at the cut size, with the budget cut alike.
+    small = load_dataset("ogbn-products", scale=LAYERWISE_CUT, seed=SEED)
+    eng_small = GNNInferenceEngine(small, model="graphsage", fanouts=FANOUTS, batch_size=BATCH,
+                                   seed=SEED, device="cuda")
+    eng_small.prepare("dci", total_cache_bytes=int(CACHE_BYTES * LAYERWISE_CUT))
+    log(f"  scale {LAYERWISE_CUT}: {small.num_nodes} nodes, {small.graph.num_edges} edges, "
+        f"{int(CACHE_BYTES * LAYERWISE_CUT)} B of cache")
+    cut_reports, cut_launches = runs(eng_small, {
+        "cut_kernel_d1": EngineConfig(use_kernel=True, pipeline_depth=1, **lw),
+        "cut_table_d1": EngineConfig(use_kernel=False, pipeline_depth=1, **lw),
+    })
+    del eng_small, small
+    torch.cuda.empty_cache()
+    launches.update(cut_launches)
+    return {"reports": {k: r.summary() for k, r in {**reports, **cut_reports}.items()},
+            "launches": launches, "max_memory_allocated": peak,
+            "allocation": {"feat_bytes": alloc.feat_bytes, "embed_bytes": alloc.embed_bytes,
+                           "feat_fraction": alloc.feat_fraction},
+            "lookups_per_layer": n + e, "chunk_gathers": gathers}
+
+
 def cli_phase() -> dict:
     phase("9. CLI")
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.infer_gnn", "--use-kernel", "--prefetch",
-         "--max-batches", "2"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"CLI failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    rep = json.loads(proc.stdout)
-    if rep["device"] != "cuda:0" or rep["batches"] != 2 or not rep["prefetch"]:
-        raise AssertionError(f"unexpected CLI report: {rep}")
-    log(f"  infer_gnn --use-kernel --prefetch --max-batches 2: ok in "
-        f"{time.perf_counter() - t0:.1f} s, feat hit {rep['feat_hit_rate']:.4f}, "
-        f"prefetched_rows {rep['prefetched_rows']}, total {rep['total_s']:.4f} s")
-    return rep
+    runs = {}
+    for args in (["--use-kernel", "--prefetch", "--max-batches", "2"],
+                 ["--policy", "rain", "--max-batches", "2"],
+                 ["--mode", "layerwise", "--scale", "0.01"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.infer_gnn", *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"CLI {args} failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        rep = json.loads(proc.stdout)
+        label = " ".join(args)
+        runs[label] = rep
+        if rep["device"] != "cuda:0":
+            raise AssertionError(f"unexpected CLI report: {rep}")
+        if "--mode" in args:
+            if rep["mode"] != "layerwise" or rep["nodes"] != 24_490:
+                raise AssertionError(f"unexpected layer-wise CLI report: {rep}")
+            detail = (f"embed hit {rep['embed_hit_rate']:.4f}, {rep['chunks']} chunks")
+        else:
+            want_prefetch = "--prefetch" in args
+            if rep["batches"] != 2 or rep["prefetch"] != want_prefetch:
+                raise AssertionError(f"unexpected CLI report: {rep}")
+            detail = f"prefetched_rows {rep.get('prefetched_rows', 0)}"
+        log(f"  infer_gnn {label}: ok in {time.perf_counter() - t0:.1f} s, policy "
+            f"{rep['policy']}, feat hit {rep['feat_hit_rate']:.4f}, {detail}, total "
+            f"{rep['total_s']:.4f} s")
+    return runs
 
 
 def main() -> int:
@@ -1027,6 +1383,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_path = main_path_phase(eng)
     cli = cli_phase()
+    baselines = baselines_phase(ds, eng)
+    layerwise = layerwise_phase(ds, eng)
+    # Launches on the paths: the nine routes, the baselines' and the
+    # layer-wise runs, each counted from 0 just before it.
+    path_launches = {
+        name: main_path["launches"][name]
+        + sum(c[name] for c in baselines["launches"].values())
+        + sum(c[name] for c in layerwise["launches"].values())
+        for name in main_path["launches"]
+    }
+    log(f"launches on the paths (phases 8, 10, 11): {path_launches}")
 
     kernels = []
     for row in rows:
@@ -1034,7 +1401,7 @@ def main() -> int:
             name = row["kernel"]
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": main_path["launches"][name],
+                "replaces": REPLACES[name], "launches": path_launches[name],
                 "max_abs_err": max_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": row["library_ms"],
             })
@@ -1057,7 +1424,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
-        "ops_launches": ops_launches, "main_path": main_path, "cli": cli, "kernels": kernels,
+        "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
+        "layerwise": layerwise, "cli": cli, "path_launches": path_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     decode = att_rows["decode"]

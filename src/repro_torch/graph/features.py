@@ -10,6 +10,10 @@ Where the tables live on a CUDA device: ``host_table`` in pinned host
 memory — the paper's UVA miss path — and ``hot_table`` and
 ``position_map`` on the device.  On the CPU all three are plain tensors.
 
+``refresh_feature_cache`` re-fills a store for new counts as a delta (the
+layer-wise mode's layer-0 cache), and ``build_embedding_cache`` puts the
+same store over a layer's spilled outputs.
+
 ``prefetch_misses`` stages a batch's missed rows onto the device ahead of
 its gather: packed on the host into pinned memory, copied on a side CUDA
 stream, and waited for (through a CUDA event) by the stream that gathers.
@@ -32,10 +36,13 @@ import torch
 from repro_torch.graph.sampling import pow2_bucket
 
 __all__ = [
+    "FeatureRefreshStats",
     "FeatureStore",
     "PrefetchedMisses",
+    "build_embedding_cache",
     "build_feature_cache",
     "plain_feature_store",
+    "refresh_feature_cache",
     "select_hot_rows",
 ]
 
@@ -114,6 +121,11 @@ class FeatureStore:
             cached = int(hot[-1]) if hot.size else -1
             object.__setattr__(self, "_pad_node_id", cached)
         return cached
+
+    def _clamp(self, indices: torch.Tensor) -> torch.Tensor:
+        """``indices`` as int32 with every id above ``N - 1`` set to ``N - 1``
+        (what a JAX gather does with an out-of-range index)."""
+        return indices.to(torch.int32).clamp_max(self.num_nodes - 1)
 
     def _copy_stream(self) -> torch.cuda.Stream:
         """The side stream the prefetch copies run on (one per store)."""
@@ -221,8 +233,12 @@ class FeatureStore:
         through ``pack_pos`` (the all-miss row set row by row), and the
         table route scatters the pack over the hot-table gather.  The
         stream waits for the pack's copy first.  The hit mask comes from
-        ``position_map`` either way.  Every route gives the same bits."""
-        indices = indices.to(torch.int32)
+        ``position_map`` either way.  Every route gives the same bits.
+
+        An id at or above ``N`` reads node ``N - 1`` (its hit flag and its
+        row), as the reference's JAX gather clamps it; a negative id wraps
+        in the position-map lookup."""
+        indices = self._clamp(indices)
         pos = self.position_map[indices.to(torch.int64)]
         hit = pos >= 0
         if prefetched is not None and prefetched.ready is not None:
@@ -295,8 +311,9 @@ class FeatureStore:
 
     def gather_cache_only(self, indices: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Degraded-mode gather: hit rows from the device cache, miss rows
-        ZERO-FILLED — never touches the host table."""
-        indices = indices.to(torch.int32)
+        ZERO-FILLED — never touches the host table.  Ids at or above ``N``
+        read node ``N - 1``, as in :meth:`gather`."""
+        indices = self._clamp(indices)
         pos = self.position_map[indices.to(torch.int64)]
         hit = pos >= 0
         cached = self.hot_table[pos.clamp(0, self.hot_table.shape[0] - 1).to(torch.int64)]
@@ -326,11 +343,19 @@ def select_hot_rows(node_counts: np.ndarray, budget_rows: int) -> np.ndarray:
     return hot
 
 
-def _host_table(features: np.ndarray, device: torch.device) -> torch.Tensor:
+def _host_table(
+    features: np.ndarray | torch.Tensor, device: torch.device | str
+) -> torch.Tensor:
     """The full table: pinned host memory beside a CUDA device, else the
-    numpy buffer itself."""
-    table = torch.from_numpy(np.ascontiguousarray(features))
-    return table.pin_memory() if device.type == "cuda" else table
+    host buffer itself (a numpy array is wrapped, not copied; a tensor that
+    is already pinned is used as it is)."""
+    if isinstance(features, torch.Tensor):
+        table = features.contiguous()
+    else:
+        table = torch.from_numpy(np.ascontiguousarray(features))
+    if torch.device(device).type == "cuda" and not table.is_pinned():
+        return table.pin_memory()
+    return table
 
 
 def build_feature_cache(
@@ -362,7 +387,142 @@ def build_feature_cache(
     return store
 
 
-def plain_feature_store(features: np.ndarray, *, device: torch.device) -> FeatureStore:
+@dataclasses.dataclass(frozen=True)
+class FeatureRefreshStats:
+    """What a delta re-fill actually moved (the bounded-pause accounting)."""
+
+    rows_kept: int  # hot rows that stayed in their slots — zero bytes moved
+    rows_inserted: int  # new hot rows scattered into freed slots
+    rows_evicted: int  # old hot rows whose slots were reused / invalidated
+    physical_rows: int  # device hot-table rows after the refresh
+    budget_rows: int  # logical capacity the new allocation pays for
+
+    @property
+    def changed(self) -> bool:
+        return bool(self.rows_inserted or self.rows_evicted)
+
+
+def refresh_feature_cache(
+    store: FeatureStore,
+    node_counts: np.ndarray,
+    capacity_bytes: int,
+) -> tuple[FeatureStore, FeatureRefreshStats]:
+    """Incremental re-fill: move only the rows whose hotness changed.
+
+    Re-runs the sort-free selection on ``node_counts`` and applies the
+    difference against ``store`` as a delta:
+
+      * rows in both the old and the new hot set KEEP their slots;
+      * evicted rows get ``position_map[v] = -1`` (their slots are freed);
+      * inserted rows are gathered once on the host and copied into the
+        freed slots, lowest node id into the lowest free slot.
+
+    The hot table only grows, by doubling (capped at the node count) when
+    the new set needs more rows than it has.  ``store`` is left as it was:
+    the new store gets its own hot table and position map (a copy when
+    nothing grows), and shares ``host_table``, so gathered rows stay
+    bit-identical — a refresh changes hit accounting and byte movement,
+    never outputs."""
+    host = store.host_table
+    n, f = host.shape
+    row_bytes = f * host.element_size()
+    budget_rows = min(max(int(capacity_bytes) // row_bytes, 0), n)
+
+    old_pos = store.position_np()
+    new_hot = select_hot_rows(node_counts, budget_rows)
+    in_new = np.zeros(n, bool)
+    in_new[new_hot] = True
+    old_nodes = np.nonzero(old_pos >= 0)[0]
+    kept_mask = in_new[old_nodes]
+    kept_nodes = old_nodes[kept_mask]
+    evicted_nodes = old_nodes[~kept_mask]
+    in_old = np.zeros(n, bool)
+    in_old[old_nodes] = True
+    inserted_nodes = np.sort(new_hot[~in_old[new_hot]])
+
+    physical = store.hot_table.shape[0]
+    needed = kept_nodes.shape[0] + inserted_nodes.shape[0]
+    if needed > physical:
+        grow_to = min(max(needed, 2 * physical), max(n, needed))
+        pad = store.hot_table.new_zeros((grow_to - physical, f))
+        hot_table = torch.cat([store.hot_table, pad])
+        physical = grow_to
+    else:
+        hot_table = store.hot_table.clone()
+
+    # Free slots = every physical slot not held by a kept row, filled in
+    # ascending order (deterministic given the same inputs).
+    occupied = np.zeros(physical, bool)
+    occupied[old_pos[kept_nodes]] = True
+    free_slots = np.nonzero(~occupied)[0][: inserted_nodes.shape[0]]
+
+    new_pos_np = old_pos.copy()
+    new_pos_np[evicted_nodes] = -1
+    new_pos_np[inserted_nodes] = free_slots
+    device = store.hot_table.device
+    if inserted_nodes.size:
+        rows = host.index_select(0, torch.from_numpy(inserted_nodes.astype(np.int64)))
+        hot_table.index_copy_(
+            0, torch.from_numpy(free_slots.astype(np.int64)).to(device), rows.to(device)
+        )
+    new_store = FeatureStore(
+        host_table=host,
+        hot_table=hot_table,
+        position_map=torch.from_numpy(new_pos_np).to(device),
+    )
+    object.__setattr__(new_store, "_position_np", new_pos_np)
+    return new_store, FeatureRefreshStats(
+        rows_kept=int(kept_nodes.shape[0]),
+        rows_inserted=int(inserted_nodes.shape[0]),
+        rows_evicted=int(evicted_nodes.shape[0]),
+        physical_rows=int(physical),
+        budget_rows=int(budget_rows),
+    )
+
+
+def build_embedding_cache(
+    table: torch.Tensor | np.ndarray,
+    access_counts: np.ndarray,
+    capacity_bytes: int,
+    *,
+    device: torch.device | str,
+) -> FeatureStore:
+    """DCI's sort-free fill applied to layer-*k* output EMBEDDINGS.
+
+    The layer-wise executor (runtime/layerwise.py) spills each layer's
+    outputs to a host table and re-reads them as the next layer's inputs;
+    this builds the device cache those re-reads hit — the same
+    :class:`FeatureStore` (position-map lookup, two-source gather,
+    row-block kernel route) as the input features, filled by
+    :func:`select_hot_rows` over the EXACT chunk access counts (``1 +
+    bincount(row_index)``).  Slots are id-ordered like
+    :func:`build_feature_cache`.  ``table`` becomes the host table as it
+    is: beside a CUDA device a pinned tensor is read in place over UVA
+    (anything else is pinned first).  A zero budget gives the cache-less
+    store."""
+    host = _host_table(table, device)
+    n, f = host.shape
+    row_bytes = f * host.element_size()
+    budget_rows = min(max(int(capacity_bytes) // row_bytes, 0), n)
+    hot = np.sort(select_hot_rows(access_counts, budget_rows))
+    position_map = np.full(n, -1, np.int32)
+    position_map[hot] = np.arange(hot.shape[0], dtype=np.int32)
+    if hot.shape[0]:
+        hot_table = host.index_select(0, torch.from_numpy(hot.astype(np.int64)))
+    else:
+        hot_table = host.new_zeros((1, f))
+    store = FeatureStore(
+        host_table=host,
+        hot_table=hot_table.to(device),
+        position_map=torch.from_numpy(position_map).to(device),
+    )
+    object.__setattr__(store, "_position_np", position_map)
+    return store
+
+
+def plain_feature_store(
+    features: np.ndarray | torch.Tensor, *, device: torch.device
+) -> FeatureStore:
     """No cache: the position map is all −1 and every row is a miss."""
     n, f = features.shape
     host_table = _host_table(features, device)

@@ -176,6 +176,7 @@ def sample_neighbors(
     *,
     generator: torch.Generator | None = None,
     r: torch.Tensor | None = None,
+    full_neighborhood: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sample ``fanout`` in-neighbors per seed (with replacement).
 
@@ -184,12 +185,20 @@ def sample_neighbors(
     visit counting during pre-sampling (unclamped; see the module note).
 
     ``r`` gives the slot draws directly; otherwise they are drawn from
-    ``generator``."""
+    ``generator``.  ``full_neighborhood=True`` replaces the draw with the
+    enumeration ``r = arange(fanout) % max(deg, 1)``: a seed whose degree
+    equals ``fanout`` takes every neighbor exactly once, so the sampled
+    aggregate IS the full-neighborhood sum (the bridge of the layer-wise
+    equivalence tests); higher degrees truncate to the first ``fanout``
+    slots, lower ones wrap."""
     seeds = seeds.to(torch.int32)
     s64 = seeds.to(torch.int64)
     start = g.col_ptr[s64]  # [S]
     deg = g.col_ptr[s64 + 1] - start  # [S]
-    if r is None:
+    if full_neighborhood:
+        slots = torch.arange(fanout, dtype=torch.int32, device=g.device)
+        r = slots[None, :] % deg.clamp_min(1)[:, None]
+    elif r is None:
         if generator is None:
             raise ValueError("sample_neighbors needs a generator or the slot draws r")
         r = draw_slots(g, seeds, fanout, generator)
@@ -249,6 +258,7 @@ def sample_blocks(
     draws: Sequence[torch.Tensor] | None = None,
     dedup: bool = False,
     dedup_pad_id: int | None = None,
+    full_neighborhood: bool = False,
 ) -> BlockSample:
     """Multi-layer fan-out sampling producing GraphSAGE blocks.
 
@@ -258,7 +268,9 @@ def sample_blocks(
     shape ``[S_i, fanouts[-1 - i]]``; otherwise each layer draws from
     ``generator``.  ``dedup=True`` also sorts-and-uniques the deepest
     frontier (:func:`dedup_frontier`, padded with ``dedup_pad_id``);
-    sampling itself is identical with the flag on or off."""
+    sampling itself is identical with the flag on or off.
+    ``full_neighborhood=True`` enumerates every layer's slots instead of
+    drawing them (:func:`sample_neighbors`) and needs no draws."""
     seeds = seeds.to(device=g.device, dtype=torch.int32)
     rev = tuple(reversed(fanouts))
     if draws is not None and len(draws) != len(rev):
@@ -274,6 +286,7 @@ def sample_blocks(
             fanout,
             generator=generator,
             r=None if draws is None else draws[i],
+            full_neighborhood=full_neighborhood,
         )
         frontier = torch.cat([frontier, nbr.reshape(-1)])
         frontiers.append(frontier)

@@ -1,11 +1,14 @@
-"""Command-line entry point: the port's sampled, single-stream GNN inference.
+"""Command-line entry point: the port's single-stream GNN inference.
 
     PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
         --dataset ogbn-products --policy dci --fanouts 15,10,5 \
         --batch-size 1024 --cache-mb 2 --use-kernel --prefetch
 
-Runs on the CUDA card unless ``--device cpu`` is given; with no card and
-no ``--device cpu`` it fails.  Prints the InferenceReport as JSON.
+``--policy`` takes dci, sci, aci, dgl, ducati and rain; ``--mode
+layerwise`` scores every node layer by layer in ``--chunk-size`` node
+ranges instead of sampling mini-batches.  Runs on the CUDA card unless
+``--device cpu`` is given; with no card and no ``--device cpu`` it fails.
+Prints the InferenceReport (or, layer-wise, the LayerwiseReport) as JSON.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch.core.config import EngineConfig
+from repro_torch.core.config import INFERENCE_MODES, EngineConfig
 from repro_torch.core.policies import POLICIES
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
@@ -35,6 +38,21 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--scale", type=float, default=0.004)
     ap.add_argument("--presample", type=int, default=8)
     ap.add_argument("--max-batches", type=int, default=None)
+    ap.add_argument(
+        "--mode",
+        default="sampling",
+        choices=INFERENCE_MODES,
+        help="'sampling' (default) = mini-batch neighborhood-sampled inference over "
+        "the test seeds; 'layerwise' = full-graph layer-wise scoring — every layer over "
+        "ALL nodes in node-range chunks, the feature cache serving layer-0 rows and an "
+        "embedding cache serving intermediate layer outputs",
+    )
+    ap.add_argument(
+        "--chunk-size",
+        type=int,
+        default=None,
+        help="node-range chunk for --mode layerwise (default 4096, clamped to the graph)",
+    )
     ap.add_argument(
         "--pipeline-depth",
         type=_depth,
@@ -72,6 +90,8 @@ def main(argv: list[str] | None = None) -> None:
 
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
     cfg = EngineConfig(
+        mode=args.mode,
+        chunk_size=args.chunk_size,
         pipeline_depth=args.pipeline_depth,
         prefetch=args.prefetch,
         use_kernel=args.use_kernel,

@@ -5,7 +5,8 @@
 ``params_from_jax`` carries the reference's parameters over as they are;
 :class:`GNN` holds them as an ``nn.Module``; :func:`forward` consumes
 input-frontier features plus the block structure (fan-outs) and produces
-per-seed logits.  Matmuls run in full float32: TF32 is switched off for
+per-seed logits; :func:`forward_layer` is one layer over a chunk's exact
+in-neighborhoods (the layer-wise mode).  Matmuls run in full float32: TF32 is switched off for
 both cuBLAS and cuDNN.
 """
 
@@ -19,7 +20,7 @@ from torch import nn
 
 from repro_torch.models.gnn.layers import gcn_layer, sage_layer
 
-__all__ = ["GNN", "MODELS", "forward", "init_params", "params_from_jax"]
+__all__ = ["GNN", "MODELS", "forward", "forward_layer", "init_params", "params_from_jax"]
 
 MODELS = ("graphsage", "gcn")
 
@@ -111,6 +112,57 @@ def forward(
         if li < n_layers - 1:
             h = torch.relu(h)
     return h  # [num_seeds, num_classes]
+
+
+def forward_layer(
+    layer_params: Mapping[str, torch.Tensor],
+    self_feats: torch.Tensor,
+    nbr_feats: torch.Tensor,
+    segment_ids: torch.Tensor,
+    degrees: torch.Tensor,
+    *,
+    model: str,
+    num_dst: int,
+    relu: bool = False,
+    levels: Sequence[torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One GNN layer over EXACT neighbor aggregates — the layer-wise mode's
+    per-layer split of :func:`forward`.
+
+    ``self_feats[num_dst, F]`` are one node-range chunk's own rows,
+    ``nbr_feats[E_pad, F]`` the rows of every in-edge's source in CSC
+    order (pad rows carry ``segment_ids == num_dst``, a segment that is
+    dropped), ``segment_ids`` each edge row's destination within the chunk
+    and ``degrees[num_dst]`` the true in-degrees.  The GCN divides by
+    ``degree + 1`` (the sampled layer by ``fanout + 1``).  Zero-degree
+    nodes aggregate nothing.  ``relu`` applies the inter-layer activation.
+
+    ``segment_ids`` must be sorted (``plan_chunks`` gives them so): the
+    aggregate is ``torch.segment_reduce`` over segment lengths, which adds
+    each segment's rows in order, in one thread per output element — the
+    same bits on every run, where an atomic ``index_add_`` would add them
+    in an order that changes from run to run.
+
+    ``levels`` (``ChunkSpec.levels``) replaces ``segment_ids``: int64
+    segment lengths reduced one after the other, the first over the rows
+    of ``nbr_feats`` (then only the live edges), the last giving one row
+    per chunk node.  A thread's loop is as long as its segment, so one
+    node of in-degree near N would hold the whole chunk; split into
+    pieces of a bounded length, the sum keeps a fixed order and no loop
+    is longer than a piece or a node's piece count."""
+    _full_fp32()
+    if levels is None:
+        levels = (torch.bincount(segment_ids.to(torch.int64), minlength=num_dst + 1),)
+    agg = nbr_feats
+    for lengths in levels:
+        agg = torch.segment_reduce(agg, "sum", lengths=lengths, unsafe=True)
+    agg = agg[:num_dst]
+    if model == "graphsage":
+        h = self_feats @ layer_params["w_self"] + agg @ layer_params["w_nbr"] + layer_params["b"]
+    else:  # gcn: mean over {self} ∪ in-neighbors, single FC
+        h = ((self_feats + agg) / (degrees[:, None] + 1.0)) @ layer_params["w_self"]
+        h = h + layer_params["b"]
+    return torch.relu(h) if relu else h
 
 
 class GNN(nn.Module):

@@ -1,7 +1,8 @@
 """End-to-end sampled GNN inference engine (the system Fig. 5 describes).
 
 Pipeline per mini-batch: sample blocks (adjacency cache aware) → gather
-input-frontier features (feature cache aware) → run the GNN.  The engine
+input-frontier features (feature cache aware; RAIN reuses the previous
+batch's rows instead) → run the GNN.  The engine
 times each stage the way the paper decomposes Fig. 1/7, counts cache hits,
 and reports a *modeled* transfer time from the H100's published link
 rates.
@@ -19,6 +20,8 @@ between sample and feature, copied on a side CUDA stream), ``use_kernel``
 gather/prefetch/model one row per DISTINCT node, expanding through the
 inverse map) — default from the prepared pipeline.  Outputs, hit counts
 and batch order are identical under every knob combination.
+``EngineConfig(mode="layerwise")`` dispatches to the chunked full-graph
+executor (:mod:`repro_torch.runtime.layerwise`) instead.
 
 The RNG seam: slot draws come from one ``torch.Generator`` per stream,
 seeded ``seed + 1``, unless :meth:`GNNInferenceEngine.run` is given the
@@ -26,14 +29,14 @@ draws (one ``r`` tensor per batch and layer) — which is how the tests
 replay the JAX reference's draws.
 
 Not ported yet (each raises when asked for): online refresh, fault
-injection / retry / degraded mode, RAIN reuse, layer-wise mode.
+injection / retry / degraded mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +51,9 @@ from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
 from repro_torch.models.gnn.models import GNN, init_params
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
 from repro_torch.utils.timing import StageClock, block_until_ready
+
+if TYPE_CHECKING:
+    from repro_torch.runtime.layerwise import LayerwiseReport
 
 __all__ = [
     "GNNInferenceEngine",
@@ -115,6 +121,9 @@ class InferenceReport:
     # The RESOLVED config the run executed with (every knob concrete).
     config: EngineConfig | None = None
     device: str = "cpu"
+    # MetricsRegistry.snapshot() at report time when the run was given a
+    # registry; None otherwise.
+    metrics: dict | None = None
 
     @property
     def total_seconds(self) -> float:
@@ -180,6 +189,8 @@ class InferenceReport:
             out["unique_rows"] = self.unique_rows
             out["gathered_rows"] = self.gathered_rows
             out["duplication_factor"] = self.duplication_factor
+        if self.metrics is not None:
+            out["metrics"] = self.metrics
         return out
 
 
@@ -187,9 +198,10 @@ class StreamRuntime:
     """Cross-batch state and stage logic for ONE stream of mini-batches.
 
     Owns the stream's slot-draw source (a generator, or the given per-batch
-    draws), the hit counters and (optionally) the collected logits.  Stage
-    methods are invoked in batch order at any pipeline depth, which is what
-    the generator's sequence relies on."""
+    draws), RAIN's previous-batch reuse state, the hit counters and
+    (optionally) the collected logits.  Stage methods are invoked in batch
+    order at any pipeline depth, which is what the generator's sequence and
+    the reuse state rely on."""
 
     def __init__(
         self,
@@ -215,7 +227,10 @@ class StreamRuntime:
         self.prefetch = pipe.prefetch if prefetch is None else prefetch
         self.use_kernel = pipe.use_kernel if use_kernel is None else use_kernel
         self.gather_buffers = pipe.gather_buffers if gather_buffers is None else gather_buffers
-        self.dedup = pipe.dedup if dedup is None else dedup
+        # RAIN's reuse map addresses individual frontier positions of the
+        # previous batch, the layout dedup collapses, so the two are
+        # mutually exclusive and reuse wins.
+        self.dedup = (pipe.dedup if dedup is None else dedup) and not pipe.reuse_prev_batch
         self.adj_hits = 0
         self.adj_lookups = 0
         self.feat_hits = 0
@@ -224,6 +239,10 @@ class StreamRuntime:
         self.unique_rows = 0  # sum of per-batch distinct input nodes (dedup)
         self.gathered_rows = 0  # rows the feature stage actually gathered
         self.outputs: list[np.ndarray] | None = [] if collect_outputs else None
+        # RAIN cross-batch reuse state (only touched when the policy asks).
+        self._prev_map = np.full(pipe.caches.store.num_nodes, -1, np.int64)
+        self._prev_feats: torch.Tensor | None = None
+        self._prev_nodes: np.ndarray | None = None
 
     # ------------------------------------------------------------- stages
     def sample(self, ctx):
@@ -300,7 +319,32 @@ class StreamRuntime:
             self.gathered_rows += bucket
             return feats_u, hit, hit.sum()
         self.gathered_rows += int(block.input_nodes.shape[0])
-        feats, hit = store.gather(block.input_nodes, **gather_kw)
+        nodes = None
+        if self.pipe.reuse_prev_batch:
+            nodes = block.input_nodes.cpu().numpy()  # the reuse lookup runs on the host
+        if self._prev_feats is not None:
+            # RAIN: a row the previous batch loaded is taken from its
+            # features.  As in the reference, every row is still gathered
+            # and the reused ones are selected afterwards, so the feature
+            # stage moves all of the frontier's bytes.
+            pos = self._prev_map[nodes]
+            hit_np = pos >= 0
+            device = block.input_nodes.device
+            reused = self._prev_feats[torch.from_numpy(np.maximum(pos, 0)).to(device)]
+            fresh, _ = store.gather(block.input_nodes, **gather_kw)
+            hit = torch.from_numpy(hit_np).to(device)
+            feats = torch.where(hit[:, None], reused, fresh)
+        else:
+            feats, hit = store.gather(block.input_nodes, **gather_kw)
+        if nodes is not None:
+            # The NEXT batch's feature stage reads this state, so it is
+            # updated here and not at retire: at depth > 1 batch i retires
+            # only after batch i+1 has dispatched.
+            if self._prev_nodes is not None:
+                self._prev_map[self._prev_nodes] = -1
+            self._prev_nodes = nodes
+            self._prev_map[nodes] = np.arange(len(nodes))
+            self._prev_feats = feats
         return feats, hit, hit.sum()
 
     def compute(self, ctx):
@@ -451,7 +495,11 @@ class GNNInferenceEngine:
             reps = -(-need // max(len(test), 1))
             test = np.tile(test, reps)
         arr = test[:need].reshape(nb, self.batch_size)
-        order = np.arange(nb)
+        order = (
+            self.pipeline.batch_order
+            if self.pipeline is not None and self.pipeline.batch_order is not None
+            else np.arange(nb)
+        )
         if max_batches is not None:
             order = order[:max_batches]
         return [arr[i] for i in order]
@@ -482,7 +530,7 @@ class GNNInferenceEngine:
         prefetch = pipe.prefetch if prefetch is None else prefetch
         use_kernel = pipe.use_kernel if use_kernel is None else use_kernel
         gather_buffers = pipe.gather_buffers if gather_buffers is None else gather_buffers
-        dedup = pipe.dedup if dedup is None else dedup
+        dedup = (pipe.dedup if dedup is None else dedup) and not pipe.reuse_prev_batch
         store = pipe.caches.store
         wblock = sample_blocks(
             pipe.caches.dgraph,
@@ -564,7 +612,8 @@ class GNNInferenceEngine:
         batches: list[np.ndarray] | None = None,
         draws: Sequence[Sequence[torch.Tensor]] | None = None,
         tracer=None,
-    ) -> InferenceReport:
+        metrics=None,
+    ) -> "InferenceReport | LayerwiseReport":
         """Run inference over the dataset's test batches (or explicit seed
         ``batches``) and return the stage-time / hit-rate report.
 
@@ -572,20 +621,42 @@ class GNNInferenceEngine:
         expansion layer ``l``; without it the stream draws from a
         generator seeded ``seed + 1``.  ``config`` carries the knobs; its
         unset ones default from the prepared pipeline (the reference's
-        deprecated loose keywords are not carried over)."""
+        deprecated loose keywords are not carried over).  ``batches``
+        overrides the dataset's schedule (and RAIN's ``batch_order``).
+        ``metrics`` (a :class:`~repro_torch.core.trace.MetricsRegistry`)
+        is folded with the run's outcomes and snapshotted onto the report.
+
+        ``config.mode="layerwise"`` scores EVERY node through the chunked
+        full-graph executor (:func:`~repro_torch.runtime.layerwise.
+        run_layerwise`) and returns its report (``batches``,
+        ``max_batches`` and ``draws`` do not apply; ``"auto"`` depth
+        resolves to 2)."""
         if self.pipeline is None:
             raise RuntimeError("call prepare() first")
         pipe = self.pipeline
         cfg = config if config is not None else EngineConfig()
-        if cfg.mode != "sampling":
-            raise NotImplementedError("layer-wise mode is not ported yet (ROADMAP.md, A-item 13)")
         cfg.refresh_config()  # raises unless refresh is off
+        requested = self.pipeline_depth if cfg.pipeline_depth is None else cfg.pipeline_depth
+        if cfg.mode == "layerwise":
+            from repro_torch.runtime.layerwise import run_layerwise
+
+            depth = 2 if requested == "auto" else int(requested)
+            report = run_layerwise(
+                self.dataset,
+                pipe,
+                list(self.model.layers),
+                model=self.model_name,
+                config=cfg.resolved(pipe, pipeline_depth=depth),
+                tracer=tracer,
+                metrics=metrics,
+            )
+            self.last_outputs = [report.outputs]
+            return report
         tracer = resolve_tracer(tracer)
         if batches is None:
             batches = self._batches(max_batches)
         if draws is not None and len(draws) < len(batches):
             raise ValueError(f"draws cover {len(draws)} batches, the run has {len(batches)}")
-        requested = self.pipeline_depth if cfg.pipeline_depth is None else cfg.pipeline_depth
         depth = self.resolve_pipeline_depth(requested, seeds=batches[0] if batches else None)
         if warmup and batches:
             self.warmup(
@@ -627,7 +698,7 @@ class GNNInferenceEngine:
             gather_buffers=rt.gather_buffers,
             dedup=rt.dedup,
         )
-        return InferenceReport(
+        report = InferenceReport(
             policy=pipe.name,
             num_batches=len(batches),
             sample_seconds=clock.total("sample"),
@@ -649,3 +720,13 @@ class GNNInferenceEngine:
             config=resolved,
             device=str(self.device),
         )
+        if metrics is not None:
+            metrics.counter("batches_total", policy=pipe.name).inc(report.num_batches)
+            metrics.gauge("feat_hit_rate", policy=pipe.name).set(report.feat_hit_rate)
+            metrics.gauge("adj_hit_rate", policy=pipe.name).set(report.adj_hit_rate)
+            for name in ("sample", "prefetch", "feature", "compute"):
+                metrics.gauge("stage_seconds", policy=pipe.name, stage=name).set(
+                    clock.total(name)
+                )
+            report.metrics = metrics.snapshot()
+        return report

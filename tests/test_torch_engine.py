@@ -168,32 +168,49 @@ def test_generator_run_is_deterministic_and_prepare_runs_on_cpu(small_dataset):
     s = a.summary()
     assert s["device"] == "cpu" and 0 < s["feat_hit_rate"] < 1 and s["total_s"] > 0
     json.dumps(s)
+    from repro_torch.core.trace import MetricsRegistry
+
+    c = eng.run(max_batches=2, metrics=MetricsRegistry())
+    snap = c.summary()["metrics"]
+    assert snap["counters"]['batches_total{policy="dci"}'] == 2
+    assert snap["gauges"]['feat_hit_rate{policy="dci"}'] == c.feat_hit_rate
+    assert "metrics" not in s
 
 
-@pytest.mark.parametrize("policy", ["sci", "aci", "dgl"])
+# policy -> (feature rows cached, adjacency elements cached) at 100 KB
+CACHED = {"sci": (True, False), "aci": (False, True), "dgl": (False, False),
+          "ducati": (True, True), "rain": (False, False)}
+
+
+@pytest.mark.parametrize("policy", sorted(CACHED))
 def test_other_policies_prepare(policy):
     ds = load_dataset("reddit", scale=0.001, seed=1)
     pipe = prepare(policy, ds, total_cache_bytes=100_000, fanouts=FANOUTS, batch_size=32,
                    n_presample=1, device="cpu", use_kernel=True, dedup=True)
     assert pipe.name == policy and pipe.use_kernel and pipe.dedup
     rows, elems = pipe.caches.feat_cached_rows, pipe.caches.adj_cached_elements
-    assert (rows > 0) == (policy == "sci") and (elems > 0) == (policy == "aci")
+    assert ((rows > 0), (elems > 0)) == CACHED[policy]
+    assert pipe.reuse_prev_batch == (policy == "rain")
+    assert (pipe.batch_order is not None) == (policy == "rain")
 
 
 def test_unported_options_raise():
+    """Online refresh and fault injection are still unported, and raise;
+    every policy and both modes are ported."""
     ds = load_dataset("reddit", scale=0.001, seed=1)
-    for policy in ("ducati", "rain"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            prepare(policy, ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
-                    device="cpu")
     pipe = prepare("dci", ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
                    device="cpu", prefetch=True)
     assert pipe.prefetch  # ported: recorded as the runs' default
     eng = GNNInferenceEngine(ds, fanouts=FANOUTS, batch_size=32, device="cpu")
     eng.prepare("dgl")
-    for cfg in (EngineConfig(mode="layerwise"), EngineConfig(refresh_mode="interval")):
-        with pytest.raises(NotImplementedError):
+    for cfg in (EngineConfig(refresh_mode="interval"),
+                EngineConfig(mode="layerwise", refresh_mode="events")):
+        with pytest.raises(NotImplementedError, match="refresh"):
             eng.run(config=cfg, max_batches=1)
+    with pytest.raises(NotImplementedError, match="fault injection"):
+        pipe.caches.store.prefetch_misses(np.arange(4), injector=object())
+    rep = eng.run(config=EngineConfig(mode="layerwise", chunk_size=64))
+    assert rep.outputs.shape == (ds.num_nodes, ds.spec.num_classes)
 
 
 def test_auto_depth_and_modeled_transfer():
@@ -228,6 +245,24 @@ def test_stage_clock_waits_on_tuples_of_tensors():
         [Stage("a", lambda c: c.payload * 2, lambda c: c.outputs["a"])], depth=2
     )
     assert len(ex.run(torch.arange(3))) == 3
+
+
+@pytest.mark.parametrize("args,want", [
+    (["--policy", "rain"], {"policy": "rain", "dedup": False}),
+    (["--policy", "ducati", "--dedup"], {"policy": "ducati", "dedup": True}),
+    (["--mode", "layerwise", "--chunk-size", "100"], {"mode": "layerwise", "chunk_size": 100}),
+])
+def test_cli_takes_every_policy_and_both_modes(args, want):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.infer_gnn", "--device", "cpu",
+         "--dataset", "reddit", "--scale", "0.001", "--fanouts", "3,2", "--batch-size", "16",
+         "--presample", "1", "--max-batches", "2", "--use-kernel", "--cache-mb", "0.05", *args],
+        capture_output=True, text=True, check=True, timeout=120,
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+    )
+    rep = json.loads(out.stdout)
+    assert rep["device"] == "cpu" and rep["config"]["use_kernel"]
+    assert {k: rep[k] for k in want} == want
 
 
 def test_cli_runs_on_cpu():

@@ -259,6 +259,33 @@ def test_feature_store_gather_equal(both, use_kernel, row_block):
     assert not _np(ph).any() and plain.pad_node_id() == -1
 
 
+@pytest.mark.parametrize("use_kernel,row_block", [(False, None), (True, None), (True, 8)])
+def test_gather_clamps_ids_past_the_last_node_like_the_reference(use_kernel, row_block):
+    """An id >= N reads node N - 1 (its hit flag and its row) on every
+    route and in ``gather_cache_only``, as the reference's JAX gather
+    clamps it; a negative id keeps wrapping."""
+    n, f = 50, 8
+    feats = np.random.default_rng(7).standard_normal((n, f)).astype(np.float32)
+    counts = np.arange(n)
+    js = jfeatures.build_feature_cache(feats, counts, 320)
+    ts = tfeatures.build_feature_cache(feats, counts, 320, device=CPU)
+    ids = np.array([50, 55, 3], np.int32)
+    jf, jh = js.gather(jnp.asarray(ids))
+    tf, th = ts.gather(torch.from_numpy(ids), use_kernel=use_kernel, row_block=row_block)
+    np.testing.assert_array_equal(np.asarray(jh), [True, True, False])
+    np.testing.assert_array_equal(_np(th), np.asarray(jh))
+    np.testing.assert_array_equal(_np(tf), np.asarray(jf))
+    np.testing.assert_array_equal(_np(tf), feats[[49, 49, 3]])
+    jc, jch = js.gather_cache_only(jnp.asarray(ids))
+    tc, tch = ts.gather_cache_only(torch.from_numpy(ids))
+    np.testing.assert_array_equal(_np(tc), np.asarray(jc))
+    np.testing.assert_array_equal(_np(tch), np.asarray(jch))
+    neg = np.array([-1, -45], np.int32)  # hit flags of nodes 49 and 5
+    np.testing.assert_array_equal(_np(ts.gather(torch.from_numpy(neg), use_kernel=use_kernel,
+                                                row_block=row_block)[1]),
+                                  np.asarray(js.gather(jnp.asarray(neg))[1]))
+
+
 @pytest.mark.parametrize("num_live", [None, 150])
 @pytest.mark.parametrize("use_kernel,row_block", [(False, None), (True, None), (True, 8)])
 def test_prefetch_misses_and_prefetched_gather_equal(both, use_kernel, row_block, num_live):

@@ -350,6 +350,107 @@ def test_gathers_read_a_prefetched_pack(cuda, cached_rows):
                                                       gather_ids, pos))
 
 
+@pytest.mark.parametrize("use_kernel,row_block", [(False, None), (True, None), (True, 8)])
+def test_gather_clamps_ids_past_the_last_node_on_the_card(cuda, use_kernel, row_block):
+    """Ids >= N read node N - 1's hit flag and row on CUDA tensors too."""
+    from repro_torch.graph.features import build_feature_cache
+
+    n = 50
+    feats = np.random.default_rng(7).standard_normal((n, 8)).astype(np.float32)
+    store = build_feature_cache(feats, np.arange(n), 320, device=cuda)
+    ids = torch.tensor([50, 55, 3], dtype=torch.int32, device=cuda)
+    got, hit = store.gather(ids, use_kernel=use_kernel, row_block=row_block)
+    assert hit.tolist() == [True, True, False]
+    np.testing.assert_array_equal(got.cpu().numpy(), feats[[49, 49, 3]])
+    cached, chit = store.gather_cache_only(ids)
+    assert chit.tolist() == [True, True, False]
+    np.testing.assert_array_equal(cached.cpu().numpy(), np.stack([feats[49], feats[49],
+                                                                  np.zeros(8, np.float32)]))
+
+
+def test_layerwise_routes_are_bit_identical_on_the_card(cuda):
+    """Layer-wise on the kernel route (#2), twice, with prefetch, and on the
+    table route at depth 1, at one allocation: the same outputs and hits,
+    and #2 launched."""
+    from repro_torch.runtime.layerwise import run_layerwise
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    pipe = eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    before = tk.cached_gather_blocks.launches
+    first = eng.run(config=EngineConfig(mode="layerwise", chunk_size=1024, use_kernel=True,
+                                        pipeline_depth=2))
+    assert tk.cached_gather_blocks.launches > before and first.device == "cuda:0"
+    assert 0 < first.feat_hits < first.feat_lookups and 0 < first.embed_hits
+    for knobs in (dict(use_kernel=True, pipeline_depth=2),
+                  dict(use_kernel=True, pipeline_depth=2, prefetch=True),
+                  dict(use_kernel=False, pipeline_depth=1)):
+        cfg = EngineConfig(mode="layerwise", chunk_size=1024, **knobs)
+        rep = run_layerwise(ds, pipe, list(eng.model.layers), model="graphsage",
+                            config=cfg.resolved(pipe, pipeline_depth=cfg.pipeline_depth),
+                            allocation=first.allocation)
+        np.testing.assert_array_equal(rep.outputs, first.outputs)
+        assert (rep.feat_hits, rep.feat_lookups, rep.embed_hits, rep.embed_lookups) == (
+            first.feat_hits, first.feat_lookups, first.embed_hits, first.embed_lookups)
+    assert first.outputs.shape == (ds.num_nodes, ds.spec.num_classes)
+    assert np.isfinite(first.outputs).all()
+
+
+def _cpu_draws(ds, batches, fanouts):
+    """Slot draws for ``batches`` made on the CPU, recovered from a
+    CPU-sampled block as ``edge_slots - col_ptr[frontier]``."""
+    from repro_torch.graph.sampling import device_graph, sample_blocks
+
+    g = device_graph(ds.graph, device=torch.device("cpu"))
+    gen = torch.Generator().manual_seed(5)
+    draws = []
+    for seeds in batches:
+        block = sample_blocks(g, torch.from_numpy(seeds), fanouts, generator=gen)
+        draws.append([slots - g.col_ptr[f.to(torch.int64)][:, None].to(slots.dtype)
+                      for f, slots in zip(block.frontiers, block.edge_slots)])
+    return draws
+
+
+def test_rain_on_the_card_matches_its_cpu_run(cuda):
+    """RAIN's reuse on the card (kernel and table routes) against the same
+    draws on the CPU: reuse hits equal, logits within 1e-4."""
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    fanouts = (3, 2)
+    runs = {}
+    for device in ("cpu", cuda):
+        eng = GNNInferenceEngine(ds, fanouts=fanouts, batch_size=64, device=device)
+        eng.prepare("rain")
+        draws = _cpu_draws(ds, eng._batches(4), fanouts)
+        for use_kernel in (True, False):
+            rep = eng.run(config=EngineConfig(use_kernel=use_kernel, dedup=True), max_batches=4,
+                          collect_outputs=True, draws=draws)
+            assert not rep.dedup
+            runs[(str(device), use_kernel)] = (rep.feat_hits, rep.feat_lookups,
+                                               np.stack(eng.last_outputs))
+    cpu_hits, cpu_lookups, cpu_out = runs[("cpu", True)]
+    assert 0 < cpu_hits < cpu_lookups
+    for hits, lookups, out in runs.values():
+        assert (hits, lookups) == (cpu_hits, cpu_lookups)
+        np.testing.assert_allclose(out, cpu_out, rtol=1e-4, atol=1e-4)
+
+
+def test_ducati_routes_agree_on_the_card(cuda):
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    pipe = eng.prepare("ducati", total_cache_bytes=300_000, n_presample=1)
+    assert pipe.presample.n_batches == 4 and pipe.caches.feat_cached_rows > 0
+    n_db, n_blk = tk.cached_gather.launches, tk.cached_gather_blocks.launches
+    outs, hits = [], set()
+    for dedup in (False, True):
+        rep = eng.run(config=EngineConfig(use_kernel=True, dedup=dedup), max_batches=3,
+                      collect_outputs=True)
+        outs.append(np.stack(eng.last_outputs))
+        hits.add((rep.feat_hits, rep.adj_hits))
+    assert tk.cached_gather.launches > n_db and tk.cached_gather_blocks.launches > n_blk
+    assert len(hits) == 1
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
 SEG_TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
 ATT_TOL = {torch.float32: 3e-4, torch.bfloat16: 5e-2}
 # A bfloat16 output against ref.py in float32 on the same inputs (rtol,
