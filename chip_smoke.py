@@ -75,7 +75,10 @@ whose errors is caught:
    counters of kernels #1 and #2 (set to 0 just before each route and
    read just after) must be > 0;
 9. the CLI, as subprocesses: ``--use-kernel --prefetch``, ``--policy
-   rain`` and ``--mode layerwise --scale 0.01``;
+   rain``, ``--mode layerwise --scale 0.01``, and serving at the default
+   ``--scale 0.004``: ``--streams 4 --batches-per-stream 2``, ``--arrival
+   burst --admission slo --slo-ms 400`` and ``--faults`` (a plan written
+   under ``chiprun_out/``) ``--fault-policy retry``;
 10. baselines: ``prepare("ducati", 256 MB)`` and ``prepare("rain")`` on
    phase 3's dataset beside phase 3's ``dci``, with each ``prep_seconds``
    and DUCATI's knapsack split; 8 batches of each on the kernel route at
@@ -91,7 +94,24 @@ whose errors is caught:
    alone through #2 and #1 (pinned host table) and #2 (host table on
    the card), timed with CUDA events; then the table route
    against the kernel route at depth 1 at scale 0.1 (the host gather of
-   every miss row is slow at full size).
+   every miss row is slow at full size);
+12. serving, on phase 3's ``dci`` pipeline: ``MultiStreamServer`` with 4
+   streams x 8 batches (``make_stream_batches``, seed 0) at depth 2 on the
+   kernel route and on kernel + dedup — every stream's logits and hit
+   counts equal (``torch.equal``) to the engine running it alone with its
+   seed, #1 (or #2) launched, no ``kernel_fallbacks``, the in-flight cap
+   kept; then ``RequestQueueServer``: (a)'s queues as a flash crowd under
+   round-robin (the same admission log and logits), a Poisson trace at
+   offered load 0.7 of the probe's service time under round-robin, EDF
+   and SLO, and a burst trace under round-robin and EDF (p50/p99,
+   deadline hit rate and shed count are readings, not gates); then seeded
+   fault plans: ``host_fetch`` p 0.05 under retry (logits equal, retries
+   counted), ``kernel_gather`` twice under fail-fast (two gathers on the
+   table route, #1 launched for every other batch, logits equal) and
+   ``host_fetch`` always down under degraded shedding (every request
+   answered cache-only: each batch's logits are the forward of the
+   fault-free gather with its miss rows zeroed; completed and shed
+   requests partition each stream).
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -124,6 +144,11 @@ MAIN_ROWS = BATCH * 16 * 11 * 6  # 1,081,344 input-frontier rows per batch
 CACHE_BYTES = 256 * 10**6
 MAIN_BATCHES = 8
 BASELINE_BATCHES = 8
+SERVE_STREAMS = 4  # phase 12: streams x batches at depth 2
+SERVE_BATCHES = 8
+SERVE_DEPTH = 2
+POISSON_LOAD = 0.7  # offered load of the Poisson trace at the probe's service time
+BURST_REQUESTS = 8  # the burst trace: 8 at t = 0 beside 16 steady ones
 LAYERWISE_CHUNK = 4096  # the reference CLI's default chunk
 LAYERWISE_CUT = 0.1  # the scale of the table-route layer-wise check
 SEG_SHAPE = (180_224, 5, 100)  # first GraphSAGE layer: 1024*16*11 dst nodes, fanout 5, F 100
@@ -1306,13 +1331,266 @@ def layerwise_phase(ds, eng) -> dict:
             "lookups_per_layer": n + e, "chunk_gathers": gathers}
 
 
+def serve_run(server, counters, **run_kw):
+    """``server.run()`` counted from 0 (the launches of a serving path)."""
+    return counted_run(lambda: server.run(**run_kw), counters)
+
+
+def log_serve(label: str, rep, counts=None) -> dict:
+    summary = rep.summary()
+    log(f"  {label:34s} wall {rep.wall_seconds:.4f} s  {rep.throughput_seeds_per_s:.1f} seeds/s  "
+        f"p50 {rep.p50_latency_s * 1e3:.3f} ms  p95 {rep.p95_latency_s * 1e3:.3f} ms  "
+        f"p99 {rep.p99_latency_s * 1e3:.3f} ms  batches {rep.total_batches}"
+        + (f"  deadline hit {rep.deadline_hit_rate:.4f} ({rep.deadline_hits}/"
+           f"{rep.deadline_total})  shed {rep.requests_shed}" if rep.admission else "")
+        + (f"  retries {rep.stage_retries}  retried {rep.requests_retried}  degraded "
+           f"{rep.requests_degraded}  kernel_fallbacks {rep.kernel_fallbacks}  "
+           f"faults {rep.faults}" if rep.faults is not None else "")
+        + (f"  launches {counts}" if counts is not None else ""))
+    return summary
+
+
+def serving_phase(ds, eng) -> dict:
+    """Multi-stream and request-level serving on phase 3's ``dci``
+    pipeline: SERVE_STREAMS streams of SERVE_BATCHES batches at depth
+    SERVE_DEPTH on the kernel routes, each stream held to its solo run;
+    Poisson, burst and flash-crowd traces under the admission policies;
+    seeded fault plans under retry, fail-fast (kernel_gather reroute) and
+    degraded shedding."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import EngineConfig, ServeConfig
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+    from repro_torch.runtime.gnn_serve import MultiStreamServer, make_stream_batches
+    from repro_torch.graph.sampling import sample_blocks
+    from repro_torch.runtime.request_queue import (Request, RequestQueueServer, burst_trace,
+                                                   poisson_trace, uniform_seed_batches)
+
+    phase(f"12. serving: {SERVE_STREAMS} streams x {SERVE_BATCHES} batches on the dci pipeline, "
+          f"depth {SERVE_DEPTH}")
+    counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
+    n_batches = SERVE_STREAMS * SERVE_BATCHES
+    queues = make_stream_batches(ds, num_streams=SERVE_STREAMS, batches_per_stream=SERVE_BATCHES,
+                                 batch_size=BATCH, seed=SEED)
+    seeds = [SEED + sid for sid in range(SERVE_STREAMS)]
+    params = [dict(layer) for layer in eng.model.layers]
+    reports, launches, outputs, base_reps = {}, {}, {}, {}
+
+    def cfg(**kw):
+        return ServeConfig(engine=EngineConfig(use_kernel=True, pipeline_depth=SERVE_DEPTH),
+                           **kw)
+
+    def add_streams(server):
+        for sid, q in enumerate(queues):
+            server.add_stream(q, seed=seeds[sid], collect_outputs=True)
+        return server
+
+    def stream_outputs(server):
+        return [np.stack(st.runtime.outputs) for st in server.streams]
+
+    # (a) Multi-stream: every stream against the engine running it alone.
+    for label, dedup in (("kernel", False), ("kernel_dedup", True)):
+        server = add_streams(MultiStreamServer(
+            eng, config=cfg().replace(engine=cfg().engine.replace(dedup=dedup))))
+        rep, counts = serve_run(server, counters)
+        kernel = "cached_gather_blocks" if dedup else "cached_gather"
+        if counts[kernel] == 0 or rep.kernel_fallbacks != 0 or rep.total_batches != n_batches:
+            raise AssertionError(f"serve {label}: launches {counts}, kernel_fallbacks "
+                                 f"{rep.kernel_fallbacks}, batches {rep.total_batches}")
+        seen = [st.max_inflight_seen for st in server.streams]
+        if max(seen) > server.max_inflight:
+            raise AssertionError(f"serve {label}: in flight {seen} over the cap "
+                                 f"{server.max_inflight}")
+        solo_s = []
+        for sid, q in enumerate(queues):
+            solo = GNNInferenceEngine(ds, model="graphsage", fanouts=FANOUTS, batch_size=BATCH,
+                                      seed=seeds[sid], params=params, device="cuda")
+            solo.pipeline = eng.pipeline
+            srep = solo.run(config=EngineConfig(use_kernel=True, dedup=dedup, pipeline_depth=1),
+                            batches=list(q), collect_outputs=True)
+            solo_s.append(srep.total_seconds)
+            st, rt = rep.streams[sid], server.streams[sid].runtime
+            if (st.adj_hits, st.adj_lookups, st.feat_hits, st.feat_lookups) != (
+                    srep.adj_hits, srep.adj_lookups, srep.feat_hits, srep.feat_lookups):
+                raise AssertionError(f"serve {label}: stream {sid}'s hit counts differ from "
+                                     "its solo run")
+            for a, b in zip(solo.last_outputs, rt.outputs):
+                if not torch.equal(torch.from_numpy(a), torch.from_numpy(b)):
+                    raise AssertionError(f"serve {label}: stream {sid}'s logits differ from its "
+                                         "solo run")
+        out = stream_outputs(server)
+        if any(o.shape != (SERVE_BATCHES, BATCH, ds.spec.num_classes) or not np.isfinite(o).all()
+               for o in out):
+            raise AssertionError(f"serve {label}: logits of shapes {[o.shape for o in out]}")
+        outputs[label] = out
+        base_reps[label] = rep
+        launches[label] = counts
+        reports[label] = log_serve(label, rep, counts)
+        reports[label].update(solo_total_s=solo_s, max_inflight_seen=seen,
+                              admission_log=server.admission_log)
+        for st in rep.streams:
+            log(f"    stream {st.stream_id}: sample {st.sample_seconds:.4f} s  feature "
+                f"{st.feature_seconds:.4f} s  compute {st.compute_seconds:.4f} s  p99 "
+                f"{st.p99_latency_s * 1e3:.3f} ms  adj hit {st.adj_hit_rate:.4f}  feat hit "
+                f"{st.feat_hit_rate:.4f}")
+        log(f"    every stream equal to its solo run (logits and hit counts); solo kernel d1 "
+            f"totals {[round(t, 4) for t in solo_s]} s; in flight at most {seen}")
+    base_out, base_log = outputs["kernel"], reports["kernel"]["admission_log"]
+    base_rep = base_reps["kernel"]
+
+    # (b) Request queue.  service_s: the synchronized per-stage probe of one
+    # batch after a warmup, as the reference's CLI paces its burst trace.
+    probe = uniform_seed_batches(ds, n_batches=1, batch_size=BATCH, seed=SEED)[0]
+    service_s = float(sum(eng._probe_stage_seconds(probe)))
+    slo_s = 10 * service_s
+    log(f"  service_s {service_s * 1e3:.3f} ms (the probe's sample + table gather + forward); "
+        f"SLO {slo_s * 1e3:.3f} ms")
+    # (a)'s queues as a flash crowd (every request at t = 0) under
+    # round-robin: the admission log and logits of (a) exactly.
+    rq = RequestQueueServer(eng, config=cfg(), admission="round-robin")
+    for sid, q in enumerate(queues):
+        rq.add_request_stream([Request(i, sid, b) for i, b in enumerate(q)], seed=seeds[sid],
+                              collect_outputs=True)
+    rep, counts = serve_run(rq, counters)
+    launches["flash_round_robin"] = counts
+    reports["flash_round_robin"] = log_serve("flash crowd of (a)'s queues, round-robin", rep,
+                                             counts)
+    if rq.admission_log != base_log or any(
+            not np.array_equal(a, b) for a, b in zip(stream_outputs(rq), base_out)):
+        raise AssertionError("round-robin over a flash crowd differs from the queue server")
+    log("    round-robin at t = 0 reproduces (a)'s admission log and logits")
+    mean_gap = SERVE_STREAMS * service_s / POISSON_LOAD
+    traces = {
+        f"poisson_{name}": (name, poisson_trace(
+            ds, num_streams=SERVE_STREAMS, requests_per_stream=SERVE_BATCHES, batch_size=BATCH,
+            mean_interarrival_s=mean_gap, slo_s=slo_s, seed=SEED))
+        for name in ("round-robin", "edf", "slo")
+    }
+    traces.update({
+        f"burst_{name}": (name, burst_trace(
+            ds, burst_requests=BURST_REQUESTS, steady_requests=2 * BURST_REQUESTS,
+            batch_size=BATCH, service_estimate_s=service_s, slo_s=slo_s, seed=SEED))
+        for name in ("round-robin", "edf")
+    })
+    for label, (admission, trace) in traces.items():
+        rq = RequestQueueServer(eng, config=cfg(), admission=admission)
+        for sid, reqs in enumerate(trace):
+            rq.add_request_stream(reqs, seed=SEED + sid)
+        rep, counts = serve_run(rq, counters)
+        offered = sum(len(t) for t in trace)
+        if rep.total_batches + rep.requests_shed != offered or counts["cached_gather"] == 0:
+            raise AssertionError(f"{label}: {rep.total_batches} done + {rep.requests_shed} shed "
+                                 f"of {offered}; launches {counts}")
+        launches[label] = counts
+        reports[label] = log_serve(f"{label} (mean gap {mean_gap * 1e3:.1f} ms)"
+                                   if label.startswith("poisson") else label, rep, counts)
+
+    # (c) Faults, each plan seeded here.
+    def fault_serve(label, plan, server_cls=MultiStreamServer, **kw):
+        server = add_streams(server_cls(eng, config=cfg(**kw), injector=FaultInjector(plan)))
+        rep, counts = serve_run(server, counters, warmup=False)
+        launches[label] = counts
+        reports[label] = log_serve(label, rep, counts)
+        return server, rep, counts
+
+    def same_as_base(label, server):
+        if any(not np.array_equal(a, b) for a, b in zip(stream_outputs(server), base_out)):
+            raise AssertionError(f"{label}: logits differ from the fault-free serve")
+
+    server, rep, _ = fault_serve(
+        "faults_host_fetch_retry",
+        FaultPlan(seed=2, rules=(FaultRule("host_fetch", probability=0.05),)),
+        fault_policy="retry", retry_backoff_ms=0.1)
+    same_as_base("host_fetch retry", server)
+    if rep.stage_retries == 0 or rep.availability != 1.0:
+        raise AssertionError(f"host_fetch retry: {rep.stage_retries} retries, availability "
+                             f"{rep.availability}")
+    server, rep, counts = fault_serve(
+        "faults_kernel_gather", FaultPlan(rules=(FaultRule("kernel_gather", max_faults=2),)))
+    same_as_base("kernel_gather reroute", server)
+    if rep.kernel_fallbacks != 2 or counts["cached_gather"] != n_batches - 2:
+        raise AssertionError(f"kernel_gather: kernel_fallbacks {rep.kernel_fallbacks}, #1 "
+                             f"launched {counts['cached_gather']} of {n_batches} batches")
+    log(f"    kernel_gather: 2 gathers rerouted to the table route, #1 launched "
+        f"{counts['cached_gather']} times for {n_batches} batches, logits equal")
+    plan = FaultPlan(rules=(FaultRule("host_fetch"),))
+    rq = RequestQueueServer(eng, config=cfg(fault_policy="shed", retry_attempts=2,
+                                            retry_backoff_ms=0.1, degraded_mode=True),
+                            injector=FaultInjector(plan))
+    for sid, q in enumerate(queues):
+        rq.add_request_stream([Request(i, sid, b) for i, b in enumerate(q)], seed=seeds[sid],
+                              collect_outputs=True)
+    reserved = torch.cuda.memory_reserved()
+    rep, counts = serve_run(rq, counters, warmup=False)
+    launches["faults_host_fetch_degraded"] = counts
+    reports["faults_host_fetch_degraded"] = log_serve("faults_host_fetch_degraded", rep, counts)
+    for st in rq.streams:
+        done = {r.request_id for r in st.completed}
+        shed = {r.request_id for r in st.shed_requests}
+        if done & shed or done | shed != set(range(SERVE_BATCHES)):
+            raise AssertionError(f"stream {st.stream_id}: completed {done} and shed {shed} do "
+                                 "not partition its requests")
+    if rep.requests_degraded != n_batches or rep.requests_shed != 0:
+        raise AssertionError(f"degraded: {rep.requests_degraded} degraded, "
+                             f"{rep.requests_shed} shed of {n_batches}")
+    # The degraded run's own logits, batch by batch, against the forward
+    # of the fault-free gather with its miss rows zeroed.  Each stream's
+    # draws are replayed from its own generator (seeded seed + 1, as the
+    # server seeds it); the replay is first held to (a)'s fault-free logits.
+    store = eng.pipeline.caches.store
+    hits = zero_rows = 0
+    for sid, q in enumerate(queues):
+        gen = torch.Generator(device="cuda").manual_seed(seeds[sid] + 1)
+        if rep.streams[sid].feat_hits != base_rep.streams[sid].feat_hits:
+            raise AssertionError(f"degraded stream {sid}: feature hits "
+                                 f"{rep.streams[sid].feat_hits}, fault-free "
+                                 f"{base_rep.streams[sid].feat_hits}")
+        for b, seeds_b in enumerate(q):
+            frontier = sample_blocks(eng.pipeline.caches.dgraph, eng._seeds(seeds_b), FANOUTS,
+                                     generator=gen).input_nodes
+            feats, hit = store.gather(frontier, use_kernel=True)
+            with torch.inference_mode():
+                want = eng.model(feats).cpu().numpy()
+                zeroed = eng.model(torch.where(hit[:, None], feats, 0.0)).cpu().numpy()
+            if not np.array_equal(want, base_out[sid][b]):
+                raise AssertionError(f"the replay of stream {sid} batch {b} is not (a)'s")
+            if not np.array_equal(zeroed, rq.streams[sid].runtime.outputs[b]):
+                raise AssertionError(f"degraded stream {sid} batch {b}: logits are not those of "
+                                     "hit rows real and miss rows zero")
+            hits += int(hit.sum())
+            zero_rows += int((~hit).sum())
+    log(f"    degraded: {rep.requests_degraded} of {n_batches} requests answered cache-only; "
+        f"every batch's logits equal the forward of the fault-free gather with its {zero_rows} "
+        f"miss rows zeroed ({hits} hit rows kept); hit counts equal (a)'s; completed and shed "
+        f"partition every stream; {reserved / 1e9:.2f} GB reserved before the run, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB after")
+    torch.cuda.empty_cache()
+    return {"reports": reports, "launches": launches, "service_s": service_s,
+            "slo_s": slo_s, "poisson_mean_gap_s": mean_gap}
+
+
 def cli_phase() -> dict:
+    from repro_torch.core.faults import FaultPlan, FaultRule
+
     phase("9. CLI")
     env = dict(os.environ, PYTHONPATH=str(SRC))
+    OUT.mkdir(exist_ok=True)
+    plan = OUT / "cli_fault_plan.json"
+    FaultPlan(seed=2, rules=(FaultRule("host_fetch", start_after=1, max_faults=2),)).save(
+        str(plan))
     runs = {}
     for args in (["--use-kernel", "--prefetch", "--max-batches", "2"],
                  ["--policy", "rain", "--max-batches", "2"],
-                 ["--mode", "layerwise", "--scale", "0.01"]):
+                 ["--mode", "layerwise", "--scale", "0.01"],
+                 ["--use-kernel", "--streams", "4", "--batches-per-stream", "2",
+                  "--pipeline-depth", "2"],
+                 ["--use-kernel", "--arrival", "burst", "--admission", "slo", "--slo-ms", "400",
+                  "--batches-per-stream", "2"],
+                 ["--use-kernel", "--streams", "2", "--batches-per-stream", "2", "--faults",
+                  str(plan), "--fault-policy", "retry"]):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.infer_gnn", *args],
@@ -1329,15 +1607,31 @@ def cli_phase() -> dict:
         if "--mode" in args:
             if rep["mode"] != "layerwise" or rep["nodes"] != 24_490:
                 raise AssertionError(f"unexpected layer-wise CLI report: {rep}")
-            detail = (f"embed hit {rep['embed_hit_rate']:.4f}, {rep['chunks']} chunks")
+            detail = (f"embed hit {rep['embed_hit_rate']:.4f}, {rep['chunks']} chunks, total "
+                      f"{rep['total_s']:.4f} s")
+        elif "--batches-per-stream" in args:
+            streams = 2 if "burst" in args else int(args[args.index("--streams") + 1])
+            want = 6 if "burst" in args else 2 * streams
+            if rep["streams"] != streams or rep["batches"] + rep.get("requests_shed", 0) != want:
+                raise AssertionError(f"unexpected serving CLI report: {rep}")
+            if "--faults" in args and (rep["faults"]["host_fetch"]["faults"] != 2
+                                       or rep["availability"] != 1.0):
+                raise AssertionError(f"unexpected fault CLI report: {rep}")
+            detail = (f"{rep['streams']} streams, {rep['batches']} batches, "
+                      f"{rep['throughput_seeds_per_s']:.1f} seeds/s, p50 "
+                      f"{rep['p50_latency_s'] * 1e3:.3f} ms, p99 {rep['p99_latency_s'] * 1e3:.3f} ms"
+                      + (f", deadline hit {rep.get('deadline_hit_rate', 1.0)}, shed "
+                         f"{rep['requests_shed']}" if "admission" in rep else "")
+                      + (f", faults {rep['faults']}, retries {rep['stage_retries']}"
+                         if "faults" in rep else ""))
         else:
             want_prefetch = "--prefetch" in args
             if rep["batches"] != 2 or rep["prefetch"] != want_prefetch:
                 raise AssertionError(f"unexpected CLI report: {rep}")
-            detail = f"prefetched_rows {rep.get('prefetched_rows', 0)}"
+            detail = (f"prefetched_rows {rep.get('prefetched_rows', 0)}, total "
+                      f"{rep['total_s']:.4f} s")
         log(f"  infer_gnn {label}: ok in {time.perf_counter() - t0:.1f} s, policy "
-            f"{rep['policy']}, feat hit {rep['feat_hit_rate']:.4f}, {detail}, total "
-            f"{rep['total_s']:.4f} s")
+            f"{rep['policy']}, feat hit {rep['feat_hit_rate']:.4f}, {detail}")
     return runs
 
 
@@ -1385,15 +1679,20 @@ def main() -> int:
     cli = cli_phase()
     baselines = baselines_phase(ds, eng)
     layerwise = layerwise_phase(ds, eng)
-    # Launches on the paths: the nine routes, the baselines' and the
-    # layer-wise runs, each counted from 0 just before it.
+    serving = serving_phase(ds, eng)
+    # Launches on the paths: the nine routes, the baselines', the
+    # layer-wise and the serving runs, each counted from 0 just before it.
     path_launches = {
         name: main_path["launches"][name]
         + sum(c[name] for c in baselines["launches"].values())
         + sum(c[name] for c in layerwise["launches"].values())
+        + sum(c[name] for c in serving["launches"].values())
         for name in main_path["launches"]
     }
-    log(f"launches on the paths (phases 8, 10, 11): {path_launches}")
+    serve_launches = {name: sum(c[name] for c in serving["launches"].values())
+                      for name in main_path["launches"]}
+    log(f"launches on the paths (phases 8, 10, 11, 12): {path_launches}; phase 12 alone: "
+        f"{serve_launches}")
 
     kernels = []
     for row in rows:
@@ -1425,7 +1724,8 @@ def main() -> int:
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
-        "layerwise": layerwise, "cli": cli, "path_launches": path_launches, "kernels": kernels,
+        "layerwise": layerwise, "serving": serving, "cli": cli, "path_launches": path_launches,
+        "serve_launches": serve_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))
     decode = att_rows["decode"]

@@ -18,31 +18,23 @@ untenable, so the knobs now consolidate into two frozen dataclasses:
     knobs (in-flight cap, admission policy, SLO, arrival process, mesh).
 
 Every consumer (``GNNInferenceEngine``, ``MultiStreamServer``,
-``RequestQueueServer``, ``ShardedServer``, the benchmarks, ``infer_gnn``)
-accepts a single ``config`` object; the old loose keywords keep working
-for one release through :func:`coalesce` — passing any of them merges the
-non-``None`` values over the config and emits a ``DeprecationWarning``.
-The merged path is bit-for-bit the old path (tested across the dedup ×
-prefetch × refresh knob grid in tests/test_config.py).
+``RequestQueueServer``, ``infer_gnn``) accepts a single ``config`` object.
 
 Refresh fields are kept inline (mode/interval/threshold) rather than
 nesting a ``RefreshConfig`` so this module stays import-cycle-free (core
-must not import runtime at module level).  Online refresh and retry are
-not ported yet: :meth:`EngineConfig.refresh_config` and
-:meth:`ServeConfig.retry_policy` raise when asked for them.
+must not import runtime at module level).  Online refresh is not ported
+yet: :meth:`EngineConfig.refresh_config` raises when any of them is set.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
 
 __all__ = [
     "DEFAULT_CHUNK_SIZE",
     "EngineConfig",
     "INFERENCE_MODES",
     "ServeConfig",
-    "coalesce",
 ]
 
 INFERENCE_MODES = ("sampling", "layerwise")
@@ -122,13 +114,23 @@ class EngineConfig:
         )
 
     def refresh_config(self):
-        """``None`` with refresh off; online refresh is not ported yet, so
-        any other mode raises."""
-        if self.refresh_mode == "off":
+        """``None`` with every refresh field at its default; online refresh
+        is not ported yet, so any other mode, interval or threshold raises
+        rather than being silently ignored."""
+        set_ = {
+            name: value
+            for name, value, default in (
+                ("refresh_mode", self.refresh_mode, "off"),
+                ("refresh_interval", self.refresh_interval, 8),
+                ("refresh_miss_threshold", self.refresh_miss_threshold, None),
+            )
+            if value != default
+        }
+        if not set_:
             return None
         raise NotImplementedError(
-            f"refresh_mode={self.refresh_mode!r}: online cache refresh is not ported "
-            "yet (ROADMAP.md, slice 3)"
+            f"{', '.join(f'{k}={v!r}' for k, v in set_.items())}: online cache refresh "
+            "is not ported yet (ROADMAP.md, A-item 15)"
         )
 
     def resolved(self, pipe=None, *, pipeline_depth=None, chunk_size=None) -> "EngineConfig":
@@ -239,36 +241,15 @@ class ServeConfig:
         )
 
     def retry_policy(self):
-        """``None`` under fail-fast (``fault_policy="fail"``); retry is not
-        ported yet, so any other policy raises."""
+        """The :class:`~repro_torch.core.retry.RetryPolicy` these fields
+        describe, or ``None`` under fail-fast (``fault_policy="fail"``)."""
         if self.fault_policy == "fail":
             return None
-        raise NotImplementedError(
-            f"fault_policy={self.fault_policy!r}: retry is not ported yet (ROADMAP.md, slice 3)"
+        from repro_torch.core.retry import RetryPolicy
+
+        return RetryPolicy(
+            max_attempts=self.retry_attempts,
+            backoff_s=self.retry_backoff_ms * 1e-3,
+            timeout_s=None if self.retry_timeout_ms is None else self.retry_timeout_ms * 1e-3,
         )
 
-
-def coalesce(config, cls=EngineConfig, *, _context="this call", **legacy):
-    """Merge deprecated loose knob kwargs over a config object.
-
-    The one-release compatibility shim: call sites that still pass
-    ``prefetch=...`` / ``depth=...`` etc. get those values merged over
-    ``config`` (``None`` values — "not specified" — are ignored) with a
-    ``DeprecationWarning`` naming the offending keywords.  With no legacy
-    kwargs this just defaults a missing config, so the config path pays
-    nothing.  The merged config is what execution reads, which is what
-    makes the two call styles bit-for-bit equivalent."""
-    used = {k: v for k, v in legacy.items() if v is not None}
-    if config is None:
-        config = cls()
-    elif not isinstance(config, cls):
-        raise TypeError(f"config must be a {cls.__name__}, got {type(config).__name__}")
-    if used:
-        warnings.warn(
-            f"{_context}: loose execution-knob kwargs ({', '.join(sorted(used))}) are "
-            f"deprecated — pass config={cls.__name__}(...) instead",
-            DeprecationWarning,
-            stacklevel=3,
-        )
-        config = config.replace(**used)
-    return config

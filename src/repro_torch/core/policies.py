@@ -16,6 +16,9 @@ against it at any ``pipeline_depth``.
 
 Presampling runs on the pipeline's device; ``stream_seeds`` splits the
 presample budget over several streams' seeds and merges the profiles.
+
+The admission policies (round-robin, EDF, SLO) order the requests the
+serving front-end (:mod:`repro_torch.runtime.request_queue`) admits.
 """
 
 from __future__ import annotations
@@ -33,8 +36,13 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 
 __all__ = [
+    "ADMISSION_POLICIES",
+    "AdmissionPolicy",
+    "EDFAdmission",
     "POLICIES",
     "PreparedPipeline",
+    "RoundRobinAdmission",
+    "SLOAdmission",
     "prepare",
     "prepare_aci",
     "prepare_dci",
@@ -345,6 +353,101 @@ POLICIES = {
     "dgl": prepare_dgl,
     "ducati": prepare_ducati,
     "rain": prepare_rain,
+}
+
+
+# ------------------------------------------------------- admission policies
+#
+# Cache policies above decide WHAT to keep on device; admission policies
+# decide WHICH queued request the serving front-end
+# (runtime/request_queue.py) dispatches next.  They are pure ordering
+# logic over duck-typed requests (``arrival_s``, optional ``deadline_s``,
+# and ``admission_deadline_s`` — the deadline as admission should see it,
+# None for a deferred/blown request): the server applies the mechanical
+# parts — in-flight caps, the progress fallback, and the round-robin
+# cursor — so a policy here never touches runtime state and stays
+# property-testable in isolation (tests/test_torch_request_queue.py).
+
+
+class AdmissionPolicy:
+    """Order the admissible requests of one serving step.
+
+    ``order(candidates, now)`` receives ``(stream_key, head_request)``
+    pairs — one per stream whose head request has arrived by ``now`` —
+    and returns them in service-preference order (most urgent first), or
+    ``None`` to defer to the server's own round-robin cursor.  ``sheds``
+    marks policies that drop (or defer) requests whose deadline has
+    already passed before selecting."""
+
+    name = "fifo"
+    sheds = False
+
+    def order(self, candidates, now):
+        del now
+        return sorted(candidates, key=lambda c: (c[1].arrival_s, c[0]))
+
+
+class RoundRobinAdmission(AdmissionPolicy):
+    """The bit-for-bit baseline: defer entirely to the server's
+    round-robin cursor (returning ``None``), so a request-queue serve
+    with zero arrival offsets reproduces ``MultiStreamServer``'s
+    admission log — and outputs — exactly."""
+
+    name = "round-robin"
+
+    def order(self, candidates, now):
+        del candidates, now
+        return None
+
+
+class EDFAdmission(AdmissionPolicy):
+    """Earliest-deadline-first.
+
+    Deadline-free requests sort last (a deadline is a promise; absence of
+    one is best-effort), ties break by arrival then stream key, so the
+    order is total and deterministic.  For a single machine serving
+    sequential batches EDF minimizes maximum lateness (Jackson's rule) —
+    under a burst this approximates global FCFS over the backlog, which
+    is what beats round-robin's interleaving on p99."""
+
+    name = "edf"
+
+    def order(self, candidates, now):
+        del now
+        inf = float("inf")
+
+        def key(c):
+            stream_key, req = c
+            dl = getattr(req, "admission_deadline_s", req.deadline_s)
+            return (inf if dl is None else dl, req.arrival_s, stream_key)
+
+        return sorted(candidates, key=key)
+
+
+class SLOAdmission(EDFAdmission):
+    """EDF plus SLO enforcement at admission time.
+
+    Before selecting, the server drops every arrived request whose
+    deadline has already passed (``blown="shed"`` — the request never
+    runs and is accounted as shed) or demotes it to best-effort
+    (``blown="defer"`` — it keeps its batch but sorts after every
+    deadline-carrying request, via ``admission_deadline_s = None``).
+    Either way a blown request can no longer delay ones that can still
+    meet their deadlines."""
+
+    name = "slo"
+    sheds = True
+
+    def __init__(self, blown: str = "shed"):
+        if blown not in ("shed", "defer"):
+            raise ValueError(f"blown must be 'shed' or 'defer', got {blown!r}")
+        self.blown = blown
+
+
+ADMISSION_POLICIES = {
+    "round-robin": RoundRobinAdmission,
+    "edf": EDFAdmission,
+    "slo": SLOAdmission,
 }
 
 

@@ -161,9 +161,12 @@ class FeatureStore:
 
         The row pack runs on a worker thread while the calling thread
         builds ``idx``/``pack_pos``; the call joins before it returns.
-        ``injector`` (fault injection) is not ported yet and raises."""
+
+        ``injector`` (:mod:`repro_torch.core.faults`, optional) charges one
+        ``prefetch`` fault-site call before any staging work, so a faulted
+        call stages nothing and is safely retryable."""
         if injector is not None:
-            raise NotImplementedError("fault injection is not ported yet (ROADMAP.md, A-item 16)")
+            injector.check("prefetch")
         if isinstance(nodes, torch.Tensor):
             nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
         nodes = np.asarray(nodes)
@@ -220,6 +223,7 @@ class FeatureStore:
         gather_buffers: int = 2,
         prefetched: PrefetchedMisses | None = None,
         row_block: int | None = None,
+        injector=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Two-source gather. Returns ``(features[S, F], hit[S])``.
 
@@ -237,7 +241,16 @@ class FeatureStore:
 
         An id at or above ``N`` reads node ``N - 1`` (its hit flag and its
         row), as the reference's JAX gather clamps it; a negative id wraps
-        in the position-map lookup."""
+        in the position-map lookup.
+
+        ``injector`` (:mod:`repro_torch.core.faults`, optional) charges a
+        ``host_fetch`` fault-site call and, on the kernel route, a
+        ``kernel_gather`` call, both before anything is launched, so a
+        faulted attempt launches nothing and is safely retryable."""
+        if injector is not None:
+            injector.check("host_fetch")
+            if use_kernel:
+                injector.check("kernel_gather")
         indices = self._clamp(indices)
         pos = self.position_map[indices.to(torch.int64)]
         hit = pos >= 0
@@ -317,7 +330,9 @@ class FeatureStore:
         pos = self.position_map[indices.to(torch.int64)]
         hit = pos >= 0
         cached = self.hot_table[pos.clamp(0, self.hot_table.shape[0] - 1).to(torch.int64)]
-        return torch.where(hit[:, None], cached, torch.zeros_like(cached)), hit
+        # Zeroed in place: the indexing made ``cached``, so the output is
+        # the only [S, F] tensor a degraded batch allocates.
+        return cached.masked_fill_(~hit[:, None], 0.0), hit
 
 
 def select_hot_rows(node_counts: np.ndarray, budget_rows: int) -> np.ndarray:

@@ -1,14 +1,27 @@
-"""Command-line entry point: the port's single-stream GNN inference.
+"""Command-line entry point: the port's GNN inference and serving.
+
+Single stream (the paper's setup):
 
     PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
         --dataset ogbn-products --policy dci --fanouts 15,10,5 \
         --batch-size 1024 --cache-mb 2 --use-kernel --prefetch
 
-``--policy`` takes dci, sci, aci, dgl, ducati and rain; ``--mode
-layerwise`` scores every node layer by layer in ``--chunk-size`` node
-ranges instead of sampling mini-batches.  Runs on the CUDA card unless
-``--device cpu`` is given; with no card and no ``--device cpu`` it fails.
-Prints the InferenceReport (or, layer-wise, the LayerwiseReport) as JSON.
+Multi-stream serving (N request streams sharing one DualCache, batches
+interleaved through one pipelined executor — runtime/gnn_serve.py), and
+request-level serving on an arrival clock (runtime/request_queue.py):
+
+    PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
+        --policy dci --streams 4 --batches-per-stream 8 --pipeline-depth 2
+    PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
+        --arrival burst --admission slo --slo-ms 400 --batches-per-stream 3
+
+``--faults PLAN.json`` replays a fault plan (core/faults.py) under
+``--fault-policy`` and ``--degraded-mode``.  ``--policy`` takes dci, sci,
+aci, dgl, ducati and rain; ``--mode layerwise`` scores every node layer by
+layer in ``--chunk-size`` node ranges instead of sampling mini-batches.
+Runs on the CUDA card unless ``--device cpu`` is given; with no card and
+no ``--device cpu`` it fails.  Prints the InferenceReport (layer-wise: the
+LayerwiseReport; serving: the ServeReport) as JSON.
 """
 
 from __future__ import annotations
@@ -16,10 +29,20 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch.core.config import INFERENCE_MODES, EngineConfig
-from repro_torch.core.policies import POLICIES
+from repro_torch.core.config import INFERENCE_MODES, REFRESH_MODES, ServeConfig
+from repro_torch.core.faults import FaultInjector, FaultPlan
+from repro_torch.core.policies import ADMISSION_POLICIES, POLICIES
+from repro_torch.core.trace import MetricsRegistry, Tracer
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+from repro_torch.runtime.gnn_serve import MultiStreamServer, make_stream_batches
+from repro_torch.runtime.request_queue import (
+    RequestQueueServer,
+    burst_trace,
+    flash_crowd_trace,
+    poisson_trace,
+    uniform_seed_batches,
+)
 
 
 def _depth(value: str):
@@ -85,19 +108,160 @@ def main(argv: list[str] | None = None) -> None:
         "pack, side-stream copy) before its gather; outputs and hit accounting are "
         "identical, only where the miss bytes move changes",
     )
+    ap.add_argument(
+        "--streams",
+        type=int,
+        default=1,
+        help="independent request streams served against ONE shared cache (1 = "
+        "the single-stream engine; >1 = runtime/gnn_serve.py, with the presample "
+        "budget split across the stream seeds)",
+    )
+    ap.add_argument(
+        "--batches-per-stream",
+        type=int,
+        default=8,
+        help="queue length per stream when serving (--max-batches caps it too)",
+    )
+    ap.add_argument(
+        "--max-inflight",
+        type=int,
+        default=None,
+        help="backpressure cap: window slots one stream may occupy (default: depth)",
+    )
+    ap.add_argument(
+        "--arrival",
+        default="none",
+        choices=("none", "poisson", "burst", "flash-crowd"),
+        help="request-level serving (runtime/request_queue.py): 'poisson' = steady "
+        "traffic with exponential gaps, 'burst' = a flash crowd at t=0 colliding "
+        "with a steady stream paced at the measured service time (always 2 "
+        "streams), 'flash-crowd' = every stream dumps its whole queue at t=0; "
+        "'none' (default) serves plain queues",
+    )
+    ap.add_argument(
+        "--slo-ms",
+        type=float,
+        default=None,
+        help="relative deadline attached to every request (arrival modes); reported "
+        "as deadline hit rate, and enforced by --admission slo",
+    )
+    ap.add_argument(
+        "--admission",
+        default="round-robin",
+        choices=sorted(ADMISSION_POLICIES),
+        help="admission policy for --arrival modes: 'round-robin', 'edf' (earliest "
+        "deadline first), 'slo' (EDF + shed requests whose deadline already passed)",
+    )
+    ap.add_argument(
+        "--mean-interarrival-ms",
+        type=float,
+        default=50.0,
+        help="mean request gap per stream for --arrival poisson",
+    )
+    ap.add_argument(
+        "--faults",
+        default=None,
+        metavar="PLAN.json",
+        help="inject deterministic faults from a FaultPlan JSON file "
+        "(core/faults.py): the sites adj_fetch, host_fetch, prefetch and "
+        "kernel_gather fail or delay on seeded per-site schedules",
+    )
+    ap.add_argument(
+        "--fault-policy",
+        default=None,
+        choices=("fail", "retry", "shed"),
+        help="what a guarded-site failure does: 'fail' fails fast (default), 'retry' "
+        "retries with bounded exponential backoff then fails, 'shed' retries then "
+        "sheds just the failing request and keeps serving",
+    )
+    ap.add_argument(
+        "--retry-attempts",
+        type=int,
+        default=3,
+        help="attempts per guarded call including the first (policies retry/shed)",
+    )
+    ap.add_argument(
+        "--retry-backoff-ms",
+        type=float,
+        default=1.0,
+        help="base backoff before attempt 2; doubles per attempt with seeded jitter",
+    )
+    ap.add_argument(
+        "--retry-timeout-ms",
+        type=float,
+        default=None,
+        help="per-attempt budget on the host side of an attempt (dispatch and any "
+        "injected delay; a launch does not wait for the card); an attempt over it "
+        "raises StageTimeout, which retries like a fault",
+    )
+    ap.add_argument(
+        "--degraded-mode",
+        action="store_true",
+        help="serve degraded instead of failing when the miss path is down: "
+        "cache-only rows (miss rows zero, requests marked degraded) and prefetch "
+        "skipping",
+    )
+    ap.add_argument(
+        "--trace",
+        default=None,
+        metavar="OUT.json",
+        help="record a span/event timeline of the run (core/trace.py) and write it "
+        "as Chrome trace-event JSON",
+    )
+    ap.add_argument(
+        "--trace-profiler",
+        action="store_true",
+        help="also wrap every span in torch.profiler.record_function, so spans show "
+        "up beside the kernels in a torch.profiler capture (needs --trace)",
+    )
+    ap.add_argument(
+        "--metrics",
+        default=None,
+        metavar="OUT",
+        help="write a metrics snapshot (counters/gauges/histograms) to OUT: "
+        "Prometheus text when OUT ends in .prom/.txt, JSON otherwise",
+    )
+    ap.add_argument(
+        "--mesh",
+        type=int,
+        default=0,
+        help="shard the feature store across this many devices: not ported yet "
+        "(ROADMAP.md, A-item 17); any value but 0 raises",
+    )
+    ap.add_argument(
+        "--refresh-mode",
+        default="off",
+        choices=REFRESH_MODES,
+        help="online cache refresh: not ported yet (ROADMAP.md, A-item 15); any "
+        "mode but 'off' raises",
+    )
+    ap.add_argument(
+        "--refresh-interval", type=int, default=8,
+        help="see --refresh-mode; any value but 8 raises",
+    )
+    ap.add_argument(
+        "--refresh-miss-threshold", type=float, default=None,
+        help="see --refresh-mode; any value raises",
+    )
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
+    if args.trace_profiler and args.trace is None:
+        ap.error("--trace-profiler requires --trace")
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: sharded serving is not ported yet (ROADMAP.md, A-item 17)"
+        )
+    if args.arrival == "burst":
+        args.streams = 2  # the burst trace is one flash-crowd + one steady stream
+    # One typed config carries every knob from here down; refresh_config()
+    # raises when any refresh flag is set (not ported yet).
+    cfg = ServeConfig.from_args(args)
+    cfg.engine.refresh_config()
+    tracer = Tracer(profiler_annotations=args.trace_profiler) if args.trace is not None else None
+    metrics = MetricsRegistry() if args.metrics is not None else None
+
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
-    cfg = EngineConfig(
-        mode=args.mode,
-        chunk_size=args.chunk_size,
-        pipeline_depth=args.pipeline_depth,
-        prefetch=args.prefetch,
-        use_kernel=args.use_kernel,
-        gather_buffers=args.gather_buffers,
-        dedup=args.dedup,
-    )
     ds = load_dataset(args.dataset, scale=args.scale, max_nodes=200_000)
     eng = GNNInferenceEngine(
         ds,
@@ -107,14 +271,100 @@ def main(argv: list[str] | None = None) -> None:
         pipeline_depth=args.pipeline_depth,
         device=args.device,
     )
+    stream_seeds = [eng.seed + s for s in range(args.streams)] if args.streams > 1 else None
     eng.prepare(
         args.policy,
-        config=cfg,
+        config=cfg.engine,
         total_cache_bytes=int(args.cache_mb * 1e6),
         n_presample=args.presample,
+        stream_seeds=stream_seeds,
     )
-    rep = eng.run(config=cfg, max_batches=args.max_batches)
+    per_stream = args.batches_per_stream
+    if args.max_batches is not None:
+        per_stream = min(per_stream, args.max_batches)
+    # Under a fault plan a fail-fast abort still prints the partial report
+    # (with its 'error' field) instead of a traceback.
+    raise_on_error = args.faults is None
+    if args.mode == "layerwise":
+        # Full-graph scoring is a whole-dataset pass; the serving front-ends
+        # are sampling-mode machinery.
+        rep = eng.run(config=cfg.engine, tracer=tracer, metrics=metrics)
+    elif args.arrival != "none":
+        slo_s = args.slo_ms / 1e3 if args.slo_ms is not None else None
+        if args.arrival == "poisson":
+            trace = poisson_trace(
+                ds,
+                num_streams=args.streams,
+                requests_per_stream=per_stream,
+                batch_size=args.batch_size,
+                mean_interarrival_s=args.mean_interarrival_ms / 1e3,
+                slo_s=slo_s,
+                seed=eng.seed,
+            )
+        elif args.arrival == "flash-crowd":
+            trace = flash_crowd_trace(
+                ds,
+                num_streams=args.streams,
+                requests_per_stream=per_stream,
+                batch_size=args.batch_size,
+                slo_s=slo_s,
+                seed=eng.seed,
+            )
+        else:  # burst: pace the steady stream at the measured service time
+            probe = uniform_seed_batches(ds, n_batches=1, batch_size=args.batch_size,
+                                         seed=eng.seed)[0]
+            service_s = float(sum(eng._probe_stage_seconds(probe)))
+            trace = burst_trace(
+                ds,
+                burst_requests=per_stream,
+                steady_requests=2 * per_stream,
+                batch_size=args.batch_size,
+                service_estimate_s=service_s,
+                slo_s=slo_s,
+                seed=eng.seed,
+            )
+        server = RequestQueueServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+        for sid, requests in enumerate(trace):
+            server.add_request_stream(requests, seed=eng.seed + sid)
+        rep = server.run(raise_on_error=raise_on_error)
+    elif args.streams > 1:
+        server = MultiStreamServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+        queues = make_stream_batches(
+            ds,
+            num_streams=args.streams,
+            batches_per_stream=per_stream,
+            batch_size=args.batch_size,
+            seed=eng.seed,
+        )
+        for sid, queue in enumerate(queues):
+            server.add_stream(queue, seed=stream_seeds[sid])
+        rep = server.run(raise_on_error=raise_on_error)
+    else:
+        # The servers resolve the injector from cfg.faults; the single-stream
+        # engine takes live handles.
+        injector = None
+        if args.faults is not None:
+            injector = FaultInjector(FaultPlan.load(args.faults), tracer=tracer)
+        rep = eng.run(
+            config=cfg.engine,
+            max_batches=args.max_batches,
+            tracer=tracer,
+            metrics=metrics,
+            injector=injector,
+            retry_policy=cfg.retry_policy(),
+            degraded_mode=cfg.degraded_mode,
+        )
     print(json.dumps(rep.summary(), indent=1))
+    if tracer is not None:
+        tracer.export(args.trace)
+    if metrics is not None:
+        text = (
+            metrics.to_prometheus()
+            if args.metrics.endswith((".prom", ".txt"))
+            else metrics.to_json()
+        )
+        with open(args.metrics, "w", encoding="utf-8") as fh:
+            fh.write(text)
 
 
 if __name__ == "__main__":

@@ -26,10 +26,18 @@ executor (:mod:`repro_torch.runtime.layerwise`) instead.
 The RNG seam: slot draws come from one ``torch.Generator`` per stream,
 seeded ``seed + 1``, unless :meth:`GNNInferenceEngine.run` is given the
 draws (one ``r`` tensor per batch and layer) — which is how the tests
-replay the JAX reference's draws.
+replay the JAX reference's draws.  A stream counts its own batches, so a
+stream served beside others (:mod:`repro_torch.runtime.gnn_serve`) reads
+its own draws.
 
-Not ported yet (each raises when asked for): online refresh, fault
-injection / retry / degraded mode.
+Fault tolerance (:mod:`repro_torch.core.faults`,
+:mod:`repro_torch.core.retry`): with an injector, the sample, prefetch
+and feature stages charge their fault sites and run under the retry
+policy; a ``kernel_gather`` fault reroutes that gather to the table route
+(counted in ``kernel_fallbacks``), and under ``degraded_mode`` a dead
+miss path serves cache-only rows.  A real error, from a CUDA build or
+launch included, is never retried or rerouted.  Online refresh is not
+ported yet (ROADMAP.md, A-item 15) and raises when asked for.
 """
 
 from __future__ import annotations
@@ -42,7 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import EngineConfig
+from repro_torch.core.faults import InjectedFault
 from repro_torch.core.policies import PreparedPipeline, prepare
+from repro_torch.core.retry import RetryExhausted, StageTimeout, call_with_retry
 from repro_torch.core.trace import resolve_tracer
 from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
@@ -56,6 +66,7 @@ if TYPE_CHECKING:
     from repro_torch.runtime.layerwise import LayerwiseReport
 
 __all__ = [
+    "FAULT_ERRORS",
     "GNNInferenceEngine",
     "InferenceReport",
     "StreamRuntime",
@@ -71,6 +82,20 @@ PCIE5_BW = 64e9
 HBM3_BW = 3.35e12
 
 ADJ_ENTRY_BYTES = 4  # one int32 neighbor id per adjacency lookup
+
+# The errors of the fault subsystem: the only ones a retry, a degraded
+# fallback or a shedding server handles; any other error propagates.
+FAULT_ERRORS = (InjectedFault, RetryExhausted, StageTimeout)
+
+
+def _fault_site(err: BaseException) -> str | None:
+    """The site of a fault-subsystem error (of the last attempt, when the
+    retries ran out).  Handlers read the site through this and keep no
+    local that refers to the error: its traceback holds the frames below
+    the handler's, whose ``f_back`` chain leads back to the handler's
+    frame, so such a local would keep the batch's tensors in a cycle
+    until the next garbage collection."""
+    return getattr(err.last if isinstance(err, RetryExhausted) else err, "site", None)
 
 
 def modeled_transfer_seconds(
@@ -198,10 +223,14 @@ class StreamRuntime:
     """Cross-batch state and stage logic for ONE stream of mini-batches.
 
     Owns the stream's slot-draw source (a generator, or the given per-batch
-    draws), RAIN's previous-batch reuse state, the hit counters and
-    (optionally) the collected logits.  Stage methods are invoked in batch
-    order at any pipeline depth, which is what the generator's sequence and
-    the reuse state rely on."""
+    draws, indexed by the stream's own batch count), RAIN's previous-batch
+    reuse state, the hit and fault counters and (optionally) the collected
+    logits.  The engine runs one; the multi-stream server
+    (:mod:`repro_torch.runtime.gnn_serve`) runs one per stream against a
+    single shared cache, which the stages only read, so each stream's
+    draws, reuse and counts equal its solo run.  Stage methods are invoked
+    in the stream's batch order at any pipeline depth, which is what the
+    generator's sequence, the batch count and the reuse state rely on."""
 
     def __init__(
         self,
@@ -216,6 +245,9 @@ class StreamRuntime:
         use_kernel: bool | None = None,
         gather_buffers: int | None = None,
         dedup: bool | None = None,
+        injector=None,
+        retry_policy=None,
+        degraded_mode: bool = False,
     ):
         if generator is None and draws is None:
             raise ValueError("StreamRuntime needs a generator or the per-batch draws")
@@ -231,6 +263,17 @@ class StreamRuntime:
         # previous batch, the layout dedup collapses, so the two are
         # mutually exclusive and reuse wins.
         self.dedup = (pipe.dedup if dedup is None else dedup) and not pipe.reuse_prev_batch
+        # Fault tolerance: with no injector and no retry policy every guard
+        # below is one ``is None`` test and the stages are the plain ones.
+        self.injector = injector
+        self.retry_policy = retry_policy
+        self.degraded_mode = degraded_mode
+        self.stage_retries = 0  # backoff retries across all sites
+        self.degraded_batches = 0  # batches served cache-only (miss path down)
+        self.kernel_fallbacks = 0  # kernel_gather faults rerouted to the table route
+        self._retry_seq = 0  # per-stream retry-key sequence (deterministic jitter)
+        self._batch = 0  # this stream's batches sampled so far: indexes ``draws``
+        self.tracer = resolve_tracer(None)  # installed by the owning engine/server
         self.adj_hits = 0
         self.adj_lookups = 0
         self.feat_hits = 0
@@ -244,15 +287,71 @@ class StreamRuntime:
         self._prev_feats: torch.Tensor | None = None
         self._prev_nodes: np.ndarray | None = None
 
+    # ---------------------------------------------------- fault tolerance
+    def _with_retry(self, ctx, site: str, fn):
+        """Run ``fn`` under the stream's retry policy, charging backoff
+        retries to ``site``.  Only injected faults and per-attempt timeouts
+        are retried; any other error propagates on the first attempt.  The
+        jitter key is ``(site, seq)`` with a per-stream sequence, so the
+        delay schedule depends on the policy seed and the order the faults
+        land, never on the clock.  A timeout bounds the host side of an
+        attempt (its dispatch and any injected delay): a launch returns
+        before the card has run it, and no attempt waits for the card."""
+        if self.retry_policy is None:
+            return fn()
+        self._retry_seq += 1
+        seq = self._retry_seq
+
+        def _on_retry(attempt, delay, err):
+            self.stage_retries += 1
+            ctx.outputs["_retried"] = ctx.outputs.get("_retried", 0) + 1
+            if self.tracer.enabled:
+                self.tracer.complete(
+                    "retry",
+                    lane="faults",
+                    ts_us=self.tracer.now_us(),
+                    dur_us=delay * 1e6,
+                    args={"site": site, "attempt": attempt},
+                )
+
+        return call_with_retry(
+            fn,
+            policy=self.retry_policy,
+            key=(site, seq),
+            retryable=(InjectedFault, StageTimeout),
+            on_retry=_on_retry,
+        )
+
+    def _mark_degraded(self, ctx) -> None:
+        """Flag the batch as served degraded (cache-only hit rows, zero
+        miss rows) for the retire-time accounting."""
+        self.degraded_batches += 1
+        ctx.outputs["_degraded"] = True
+        if self.tracer.enabled:
+            self.tracer.complete(
+                "degraded",
+                lane="faults",
+                ts_us=self.tracer.now_us(),
+                dur_us=0.0,
+                args={"site": "host_fetch"},
+            )
+
     # ------------------------------------------------------------- stages
     def sample(self, ctx):
         caches = self.pipe.caches
+        if self.injector is not None and self.injector.active("adj_fetch"):
+            # Charged BEFORE the draw, so a retried attempt samples the same
+            # batch.  Adjacency has no degraded fallback: exhausted retries
+            # propagate.
+            self._with_retry(ctx, "adj_fetch", lambda: self.injector.check("adj_fetch"))
+        draws = None if self.draws is None else self.draws[self._batch]
+        self._batch += 1
         block = sample_blocks(
             caches.dgraph,
             ctx.payload,
             self.fanouts,
             generator=self.generator,
-            draws=None if self.draws is None else self.draws[ctx.index],
+            draws=draws,
             dedup=self.dedup,
             # Pad the unique bucket's tail with a known-cached id, so pad
             # slots are feature-cache hits, never phantom miss rows.
@@ -288,19 +387,93 @@ class StreamRuntime:
         forward.  The hit mask (and all accounting) still comes from
         ``position_map``, so hit counts are identical with prefetch on or
         off.  Under ``dedup`` only the batch's DISTINCT missed rows are
-        staged (the live prefix of the unique bucket)."""
+        staged (the live prefix of the unique bucket).
+
+        The ids are read back before the fault envelope, so a timed
+        attempt covers the host pack and the copies' dispatch, not the
+        wait for the card."""
         store = self.pipe.caches.store
+        nu = None
         if self.dedup:
-            _, nu, _, uids = ctx.outputs["_dedup"]
-            staged = store.prefetch_misses(uids, num_live=nu)
+            _, nu, _, nodes = ctx.outputs["_dedup"]
         else:
-            staged = store.prefetch_misses(ctx.outputs["sample"][0].input_nodes)
+            nodes = ctx.outputs["sample"][0].input_nodes
+        nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
+        stage = lambda: store.prefetch_misses(  # noqa: E731
+            nodes, num_live=nu, injector=self.injector
+        )
+        if self.injector is None:
+            staged = stage()
+        else:
+            try:
+                staged = self._with_retry(ctx, "prefetch", stage)
+            except FAULT_ERRORS as err:
+                if _fault_site(err) != "prefetch" or not self.degraded_mode:
+                    raise
+                # Prefetch down: skip the staging and let the feature stage
+                # read the misses over the ordinary host path.  Outputs and
+                # hit counts are the same (prefetch only moves bytes early),
+                # so the batch is NOT marked degraded.
+                return None
         self.prefetched_rows += staged.num_miss
         return staged
 
+    # The sharded server (ROADMAP.md, A-item 17) will override these two
+    # cache-access hooks, and only these, so every stage's control flow
+    # and accounting stays the same across layouts.
+    def _gather(self, ctx, indices, **gather_kw):
+        """Two-source feature gather over ``indices`` → ``(feats, hit)``."""
+        del ctx
+        return self.pipe.caches.store.gather(indices, injector=self.injector, **gather_kw)
+
+    def _gather_cache_only(self, ctx, indices):
+        """Degraded-mode gather: cached rows only, miss rows zero."""
+        del ctx
+        return self.pipe.caches.store.gather_cache_only(indices)
+
+    def _gather_ft(self, ctx, indices, **gather_kw):
+        """The feature store's gather under the fault-tolerance envelope.
+
+        With no injector this IS the gather.  With one, the gather runs
+        under retry; when the retries are spent (or the policy fails fast)
+        the recovery depends on the site whose fault ended it:
+
+        * ``kernel_gather`` — the same gather on the table route, which
+          gives the same bits, so the batch is NOT degraded; only
+          ``kernel_fallbacks`` counts it.  This is the recovery from an
+          injected fault: a real error from the kernel's build or launch
+          is no fault of the plan and propagates unchanged;
+        * ``host_fetch`` under ``degraded_mode`` — cache-only rows (miss
+          rows zero), the batch marked degraded;
+        * otherwise — propagate."""
+        if self.injector is None:
+            return self._gather(ctx, indices, **gather_kw)
+        try:
+            return self._with_retry(
+                ctx, "host_fetch", lambda: self._gather(ctx, indices, **gather_kw)
+            )
+        except FAULT_ERRORS as err:
+            site = _fault_site(err)
+            if site == "kernel_gather":
+                self.kernel_fallbacks += 1
+                if self.tracer.enabled:
+                    self.tracer.complete(
+                        "kernel-fallback",
+                        lane="faults",
+                        ts_us=self.tracer.now_us(),
+                        dur_us=0.0,
+                        args={"site": site},
+                    )
+                fallback_kw = dict(gather_kw, use_kernel=False)
+                fallback_kw.pop("row_block", None)
+                return self._gather(ctx, indices, **fallback_kw)
+            if site == "host_fetch" and self.degraded_mode:
+                self._mark_degraded(ctx)
+                return self._gather_cache_only(ctx, indices)
+            raise
+
     def feature(self, ctx):
         block = ctx.outputs["sample"][0]
-        store = self.pipe.caches.store
         gather_kw = dict(
             use_kernel=self.use_kernel,
             gather_buffers=self.gather_buffers,
@@ -311,8 +484,8 @@ class StreamRuntime:
             # kernel's contiguous runs on the kernel route); the per-visit
             # hit mask is the unique mask expanded through the inverse map.
             dd, nu, bucket, uids = ctx.outputs["_dedup"]
-            feats_u, hit_u = store.gather(
-                uids, row_block=ROW_BLOCK if self.use_kernel else None, **gather_kw
+            feats_u, hit_u = self._gather_ft(
+                ctx, uids, row_block=ROW_BLOCK if self.use_kernel else None, **gather_kw
             )
             hit = hit_u[dd.inverse.to(torch.int64)]
             self.unique_rows += nu
@@ -331,11 +504,11 @@ class StreamRuntime:
             hit_np = pos >= 0
             device = block.input_nodes.device
             reused = self._prev_feats[torch.from_numpy(np.maximum(pos, 0)).to(device)]
-            fresh, _ = store.gather(block.input_nodes, **gather_kw)
+            fresh, _ = self._gather_ft(ctx, block.input_nodes, **gather_kw)
             hit = torch.from_numpy(hit_np).to(device)
             feats = torch.where(hit[:, None], reused, fresh)
         else:
-            feats, hit = store.gather(block.input_nodes, **gather_kw)
+            feats, hit = self._gather_ft(ctx, block.input_nodes, **gather_kw)
         if nodes is not None:
             # The NEXT batch's feature stage reads this state, so it is
             # updated here and not at retire: at depth > 1 batch i retires
@@ -465,9 +638,12 @@ class GNNInferenceEngine:
         total_cache_bytes: int = 0,
         n_presample: int = 8,
         pipeline_depth: int = 1,
+        stream_seeds: list[int] | None = None,
     ) -> PreparedPipeline:
         """Presample, split and fill the caches on the engine's device; the
-        config's gather knobs become the pipeline's run defaults."""
+        config's gather knobs become the pipeline's run defaults.
+        ``stream_seeds`` profiles the union workload of several request
+        streams (multi-stream serving) at the same total presample budget."""
         cfg = config if config is not None else EngineConfig()
         self.pipeline = prepare(
             policy,
@@ -478,6 +654,7 @@ class GNNInferenceEngine:
             n_presample=n_presample,
             seed=self.seed,
             pipeline_depth=pipeline_depth,
+            stream_seeds=stream_seeds,
             prefetch=bool(cfg.prefetch),
             use_kernel=bool(cfg.use_kernel),
             gather_buffers=2 if cfg.gather_buffers is None else cfg.gather_buffers,
@@ -613,6 +790,9 @@ class GNNInferenceEngine:
         draws: Sequence[Sequence[torch.Tensor]] | None = None,
         tracer=None,
         metrics=None,
+        injector=None,
+        retry_policy=None,
+        degraded_mode: bool = False,
     ) -> "InferenceReport | LayerwiseReport":
         """Run inference over the dataset's test batches (or explicit seed
         ``batches``) and return the stage-time / hit-rate report.
@@ -625,6 +805,10 @@ class GNNInferenceEngine:
         overrides the dataset's schedule (and RAIN's ``batch_order``).
         ``metrics`` (a :class:`~repro_torch.core.trace.MetricsRegistry`)
         is folded with the run's outcomes and snapshotted onto the report.
+        ``injector`` (a :class:`~repro_torch.core.faults.FaultInjector`),
+        ``retry_policy`` and ``degraded_mode`` arm the stream's fault
+        envelope (see :class:`StreamRuntime`); without an injector the run
+        is the plain one.
 
         ``config.mode="layerwise"`` scores EVERY node through the chunked
         full-graph executor (:func:`~repro_torch.runtime.layerwise.
@@ -681,7 +865,11 @@ class GNNInferenceEngine:
             use_kernel=cfg.use_kernel,
             gather_buffers=cfg.gather_buffers,
             dedup=cfg.dedup,
+            injector=injector,
+            retry_policy=retry_policy,
+            degraded_mode=degraded_mode,
         )
+        rt.tracer = tracer
         clock = StageClock(overlap=depth > 1)
         executor = PipelinedExecutor(
             stream_stages(lambda c: rt, prefetch=rt.prefetch),

@@ -49,7 +49,7 @@ stage laps *and* its retire-boundary drains to that stream's own
 :class:`~repro_torch.utils.timing.StageClock`.  Stage functions resolve
 per-stream state (RNG, reuse maps, hit counters) through ``ctx.stream``,
 so the serial-equivalence guarantee above holds *per stream* — the
-foundation of the reference's multi-stream serving layer (not ported yet).
+foundation of the multi-stream serving layer (runtime/gnn_serve.py).
 """
 
 from __future__ import annotations

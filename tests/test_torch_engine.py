@@ -32,11 +32,14 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.policies import PreparedPipeline, prepare
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.models.gnn.models import params_from_jax
+from repro_torch.graph.sampling import sample_blocks
 from repro_torch.runtime.gnn_engine import (
     GNNInferenceEngine,
     InferenceReport,
+    StreamRuntime,
     auto_pipeline_depth,
     modeled_transfer_seconds,
+    stream_stages,
 )
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
 from repro_torch.utils.timing import StageClock, Stopwatch, block_until_ready
@@ -195,8 +198,9 @@ def test_other_policies_prepare(policy):
 
 
 def test_unported_options_raise():
-    """Online refresh and fault injection are still unported, and raise;
-    every policy and both modes are ported."""
+    """Online refresh is still unported, and raises; every policy, both
+    modes and fault injection are ported (a faulted prefetch raises the
+    injected fault, not NotImplementedError)."""
     ds = load_dataset("reddit", scale=0.001, seed=1)
     pipe = prepare("dci", ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
                    device="cpu", prefetch=True)
@@ -207,8 +211,12 @@ def test_unported_options_raise():
                 EngineConfig(mode="layerwise", refresh_mode="events")):
         with pytest.raises(NotImplementedError, match="refresh"):
             eng.run(config=cfg, max_batches=1)
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        pipe.caches.store.prefetch_misses(np.arange(4), injector=object())
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule, InjectedFault
+
+    injector = FaultInjector(FaultPlan(rules=(FaultRule("prefetch"),)))
+    with pytest.raises(InjectedFault, match="prefetch"):
+        pipe.caches.store.prefetch_misses(np.arange(4), injector=injector)
+    assert injector.counts() == {"prefetch": {"calls": 1, "faults": 1}}
     rep = eng.run(config=EngineConfig(mode="layerwise", chunk_size=64))
     assert rep.outputs.shape == (ds.num_nodes, ds.spec.num_classes)
 
@@ -277,3 +285,46 @@ def test_cli_runs_on_cpu():
     rep = json.loads(out.stdout)
     assert rep["device"] == "cpu" and rep["batches"] == 2 and rep["dedup"] and rep["prefetch"]
     assert rep["prefetched_rows"] > 0
+
+
+def test_interleaved_streams_read_their_own_draws():
+    """Two streams with their own per-batch draws, interleaved through one
+    executor (as the multi-stream server runs them): each stream indexes
+    its draws by ITS batch count, not the executor's admission index, so
+    each equals its solo run."""
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=FANOUTS, batch_size=BATCH, device="cpu")
+    eng.prepare("dci", total_cache_bytes=200_000, n_presample=2)
+    rng = np.random.default_rng(7)
+    queues = [[rng.permutation(ds.test_idx)[:BATCH] for _ in range(2)] for _ in range(2)]
+    dgraph = eng.pipeline.caches.dgraph
+    draws = []
+    for sid in range(2):
+        gen = torch.Generator().manual_seed(97 + sid)
+        draws.append([])
+        for seeds in queues[sid]:
+            block = sample_blocks(dgraph, torch.from_numpy(seeds.astype(np.int32)), FANOUTS,
+                                  generator=gen)
+            draws[sid].append([
+                slots - dgraph.col_ptr[block.frontiers[i].long()][:, None]
+                for i, slots in enumerate(block.edge_slots)
+            ])
+    runtimes = [
+        StreamRuntime(eng.pipeline, eng.model, fanouts=FANOUTS, draws=draws[sid],
+                      collect_outputs=True)
+        for sid in range(2)
+    ]
+    PipelinedExecutor(
+        stream_stages(lambda c: runtimes[c.stream]), depth=2,
+        on_retire=lambda c: runtimes[c.stream].record(c),
+    ).run_tagged(
+        (sid, torch.from_numpy(queues[sid][b].astype(np.int32)))
+        for b in range(2) for sid in range(2)
+    )
+    for sid in range(2):
+        rep = eng.run(batches=queues[sid], collect_outputs=True, draws=draws[sid])
+        rt = runtimes[sid]
+        assert (rt.adj_hits, rt.adj_lookups) == (rep.adj_hits, rep.adj_lookups)
+        assert (rt.feat_hits, rt.feat_lookups) == (rep.feat_hits, rep.feat_lookups)
+        for a, b in zip(eng.last_outputs, rt.outputs):
+            np.testing.assert_array_equal(a, b)

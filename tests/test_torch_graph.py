@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.core.allocation import CacheAllocation as JaxCacheAllocation
+from repro.core import faults as jfaults
 from repro.core.cache import DualCache as JaxDualCache
 from repro.core.presample import run_presampling as jax_run_presampling
 from repro.graph import csc as jcsc
@@ -23,6 +24,7 @@ from repro.graph import datasets as jdatasets
 from repro.graph import features as jfeatures
 from repro.graph import sampling as jsampling
 from repro_torch.core.allocation import CacheAllocation
+from repro_torch.core import faults as tfaults
 from repro_torch.core.cache import DualCache
 from repro_torch.graph import csc as tcsc
 from repro_torch.graph import datasets as tdatasets
@@ -321,8 +323,16 @@ def test_prefetch_misses_and_prefetched_gather_equal(both, use_kernel, row_block
         np.testing.assert_array_equal(_np(tf)[live], np.asarray(jf)[live])
         np.testing.assert_array_equal(_np(tf)[live], tds.features[ids][live])
         np.testing.assert_array_equal(_np(th), np.asarray(jh))
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        ts.prefetch_misses(ids, injector=object())
+    # A fault plan charges the same ``prefetch`` site in both packages: the
+    # faulted call stages nothing, the next one stages the same pack.
+    for faults, store in ((jfaults, js), (tfaults, ts)):
+        inj = faults.FaultInjector(
+            faults.FaultPlan(rules=(faults.FaultRule("prefetch", max_faults=1),))
+        )
+        with pytest.raises(faults.InjectedFault, match="prefetch"):
+            store.prefetch_misses(ids, num_live=num_live, injector=inj)
+        assert store.prefetch_misses(ids, num_live=num_live, injector=inj).num_miss == jp.num_miss
+        assert inj.counts() == {"prefetch": {"calls": 2, "faults": 1}}
 
 
 def test_presample_counts_equal_across_gather_routes(both, monkeypatch):

@@ -434,6 +434,70 @@ def test_rain_on_the_card_matches_its_cpu_run(cuda):
         np.testing.assert_allclose(out, cpu_out, rtol=1e-4, atol=1e-4)
 
 
+def _card_server(cuda, cfg, injector=None):
+    """A 3-stream server on the card over one prepared dci pipeline."""
+    from repro_torch.runtime.gnn_serve import MultiStreamServer, make_stream_batches
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2, stream_seeds=[0, 1, 2])
+    queues = make_stream_batches(ds, num_streams=3, batches_per_stream=3, batch_size=128,
+                                 seed=0)
+    server = MultiStreamServer(eng, config=cfg, injector=injector)
+    for sid, q in enumerate(queues):
+        server.add_stream(q, seed=sid, collect_outputs=True)
+    return eng, queues, server
+
+
+@pytest.mark.parametrize("dedup", [False, True])
+def test_three_stream_server_is_serial_equivalent_on_the_card(cuda, dedup):
+    """Each of three interleaved streams (each with its own CUDA generator)
+    gives the logits and hit counts of its batches alone through the
+    engine with the same seed, on the kernel routes (#1, or #2 under
+    dedup, launched)."""
+    from repro_torch.core.config import ServeConfig
+
+    cfg = ServeConfig(engine=EngineConfig(use_kernel=True, dedup=dedup, pipeline_depth=2))
+    eng, queues, server = _card_server(cuda, cfg)
+    kernel = tk.cached_gather_blocks if dedup else tk.cached_gather
+    before = kernel.launches
+    rep = server.run()
+    assert kernel.launches - before == 9 + 1  # every batch, and the warmup
+    assert rep.device == "cuda:0" and rep.kernel_fallbacks == 0
+    assert all(s.max_inflight_seen <= 2 for s in server.streams)
+    for sid, q in enumerate(queues):
+        solo = GNNInferenceEngine(eng.dataset, fanouts=(4, 3), batch_size=128, seed=sid,
+                                  device=cuda, params=[dict(l) for l in eng.model.layers])
+        solo.pipeline = eng.pipeline
+        srep = solo.run(config=EngineConfig(use_kernel=True, dedup=dedup),
+                        batches=list(q), collect_outputs=True)
+        st = rep.streams[sid]
+        assert (st.adj_hits, st.feat_hits) == (srep.adj_hits, srep.feat_hits)
+        for a, b in zip(solo.last_outputs, server.streams[sid].runtime.outputs):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_kernel_gather_faults_reroute_off_kernel_one_on_the_card(cuda):
+    """Two injected kernel_gather faults under fail-fast: those two gathers
+    run on the table route (kernel #1 launches 9 - 2 times over 9 batches),
+    and the logits equal the fault-free serve's."""
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule
+
+    cfg = ServeConfig(engine=EngineConfig(use_kernel=True, pipeline_depth=2))
+    _, _, base = _card_server(cuda, cfg)
+    base.run()
+    plan = FaultPlan(rules=(FaultRule("kernel_gather", start_after=1, max_faults=2),))
+    _, _, server = _card_server(cuda, cfg, FaultInjector(plan))
+    before = tk.cached_gather.launches
+    rep = server.run(warmup=False)
+    assert tk.cached_gather.launches - before == 9 - 2
+    assert rep.kernel_fallbacks == 2 and rep.requests_degraded == 0
+    for a, b in zip(base.streams, server.streams):
+        for x, y in zip(a.runtime.outputs, b.runtime.outputs):
+            np.testing.assert_array_equal(x, y)
+
+
 def test_ducati_routes_agree_on_the_card(cuda):
     ds = load_dataset("ogbn-products", scale=0.002, seed=0)
     eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
