@@ -102,8 +102,9 @@ whose errors is caught:
    seed, #1 (or #2) launched, no ``kernel_fallbacks``, the in-flight cap
    kept; then ``RequestQueueServer``: (a)'s queues as a flash crowd under
    round-robin (the same admission log and logits), a Poisson trace at
-   offered load 0.7 of the probe's service time under round-robin, EDF
-   and SLO, and a burst trace under round-robin and EDF (p50/p99,
+   offered load 0.7 of the kernel route's per-batch time ((a)'s wall over
+   its batches; the SLO stays 10x the probe's table-route service time)
+   under round-robin, EDF and SLO, and a burst trace under round-robin and EDF (p50/p99,
    deadline hit rate and shed count are readings, not gates); then seeded
    fault plans: ``host_fetch`` p 0.05 under retry (logits equal, retries
    counted), ``kernel_gather`` twice under fail-fast (two gathers on the
@@ -111,7 +112,30 @@ whose errors is caught:
    ``host_fetch`` always down under degraded shedding (every request
    answered cache-only: each batch's logits are the forward of the
    fault-free gather with its miss rows zeroed; completed and shed
-   requests partition each stream).
+   requests partition each stream);
+13. online refresh, on phase 3's ``dci`` pipeline: the engine runs 16
+   batches on the kernel route at depth 2 with an interval refresh every
+   4 batches — logits ``torch.equal`` to the same batches with refresh
+   off, per-epoch counters partitioning the lifetime ones, at least 3
+   events —; a 4-stream ``MultiStreamServer`` with refresh mode "all"
+   (3 streams, then a 4th added after serving began, then one removed):
+   every stream's logits equal its solo run; a ``refresh_fill`` plan that
+   rolls one refresh back (availability 1.0, the failure recorded, the
+   same tensors kept); each event's pause and its split (telemetry pull,
+   Eq. 1, adjacency and feature re-fills), the allocator's peak over a
+   growing refresh, and the per-batch cost of the telemetry's read-back
+   and scatters.  The caches are put back to phase 12's epoch at the end
+   (a refresh writes only new tensors, so the old ones are intact);
+14. sharded serving: ``ShardedServer`` with 4 shards co-resident on the
+   card, 4 streams x 8 batches at depth 2 on the kernel route and on
+   kernel + dedup — logits and hit counts equal to phase 12's
+   ``MultiStreamServer``, per-shard hits tiling the global counters, #1
+   (or #2) launched once per non-empty shard per batch —; an interval
+   refresh with a repartition per epoch (each repartition's rows tiling
+   that epoch's hot set); a ``shard_exchange`` plan that fails shard 1
+   over to its host table (read by #1, one launch per segment as when
+   healthy) for 4 retired batches and rejoins, logits equal; the host
+   partition's per-batch time and the serve walls beside phase 12's.
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -147,7 +171,12 @@ BASELINE_BATCHES = 8
 SERVE_STREAMS = 4  # phase 12: streams x batches at depth 2
 SERVE_BATCHES = 8
 SERVE_DEPTH = 2
-POISSON_LOAD = 0.7  # offered load of the Poisson trace at the probe's service time
+REFRESH_BATCHES = 16  # phase 13: the engine's refresh run
+REFRESH_INTERVAL = 4  # phase 13, the engine: retired batches between interval refreshes
+# Serving refreshes (phases 13 and 14) come every SERVE_BATCHES or twice as
+# many retired batches: each full-size refresh pauses 2-4 s on the host.
+SHARDS = 4  # phase 14: co-resident shards on the one card
+POISSON_LOAD = 0.7  # offered load of the Poisson trace at the kernel route's per-batch time
 BURST_REQUESTS = 8  # the burst trace: 8 at t = 0 beside 16 steady ones
 LAYERWISE_CHUNK = 4096  # the reference CLI's default chunk
 LAYERWISE_CUT = 0.1  # the scale of the table-route layer-wise check
@@ -1442,12 +1471,18 @@ def serving_phase(ds, eng) -> dict:
     base_rep = base_reps["kernel"]
 
     # (b) Request queue.  service_s: the synchronized per-stage probe of one
-    # batch after a warmup, as the reference's CLI paces its burst trace.
+    # batch after a warmup, as the reference's CLI paces its burst trace;
+    # it gathers on the table route.  The Poisson trace is paced at the
+    # kernel route's measured per-batch time instead, (a)'s wall over its
+    # batches, so that its offered load is POISSON_LOAD of what the server
+    # serves; the SLO stays 10 x the table-route time.
     probe = uniform_seed_batches(ds, n_batches=1, batch_size=BATCH, seed=SEED)[0]
     service_s = float(sum(eng._probe_stage_seconds(probe)))
+    kernel_service_s = base_rep.wall_seconds / base_rep.total_batches
     slo_s = 10 * service_s
     log(f"  service_s {service_s * 1e3:.3f} ms (the probe's sample + table gather + forward); "
-        f"SLO {slo_s * 1e3:.3f} ms")
+        f"kernel route {kernel_service_s * 1e3:.3f} ms per batch ((a)'s wall over its "
+        f"{base_rep.total_batches} batches, the Poisson pace); SLO {slo_s * 1e3:.3f} ms")
     # (a)'s queues as a flash crowd (every request at t = 0) under
     # round-robin: the admission log and logits of (a) exactly.
     rq = RequestQueueServer(eng, config=cfg(), admission="round-robin")
@@ -1462,7 +1497,7 @@ def serving_phase(ds, eng) -> dict:
             not np.array_equal(a, b) for a, b in zip(stream_outputs(rq), base_out)):
         raise AssertionError("round-robin over a flash crowd differs from the queue server")
     log("    round-robin at t = 0 reproduces (a)'s admission log and logits")
-    mean_gap = SERVE_STREAMS * service_s / POISSON_LOAD
+    mean_gap = SERVE_STREAMS * kernel_service_s / POISSON_LOAD
     traces = {
         f"poisson_{name}": (name, poisson_trace(
             ds, num_streams=SERVE_STREAMS, requests_per_stream=SERVE_BATCHES, batch_size=BATCH,
@@ -1569,7 +1604,373 @@ def serving_phase(ds, eng) -> dict:
         f"{torch.cuda.memory_reserved() / 1e9:.2f} GB after")
     torch.cuda.empty_cache()
     return {"reports": reports, "launches": launches, "service_s": service_s,
-            "slo_s": slo_s, "poisson_mean_gap_s": mean_gap}
+            "kernel_service_s": kernel_service_s, "slo_s": slo_s, "poisson_mean_gap_s": mean_gap,
+            "outputs": outputs, "hits": {
+                label: [(st.adj_hits, st.adj_lookups, st.feat_hits, st.feat_lookups)
+                        for st in r.streams] for label, r in base_reps.items()},
+            "walls": {label: r.wall_seconds for label, r in base_reps.items()}}
+
+
+def refresh_phase(ds, eng) -> dict:
+    """Online refresh on phase 3's ``dci`` pipeline: the engine's interval
+    refresh against refresh off, a serving join/leave under mode "all",
+    a ``refresh_fill`` rollback, the pause split, the allocator's peak
+    over a growing refresh and the telemetry's per-batch cost.  Leaves
+    the caches as phase 12 left them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch.runtime.cache_refresh as crm
+    from repro_torch.core.allocation import reallocate_capacity
+    from repro_torch.core.config import EngineConfig, ServeConfig
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule
+    from repro_torch.core.telemetry import WorkloadTelemetry
+    from repro_torch.graph.sampling import sample_blocks
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.runtime.cache_refresh import RefreshConfig
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+    from repro_torch.runtime.gnn_serve import MultiStreamServer, make_stream_batches
+
+    phase(f"13. online refresh: {REFRESH_BATCHES} batches, interval {REFRESH_INTERVAL}, "
+          f"depth {SERVE_DEPTH}, on the dci pipeline")
+    caches = eng.pipeline.caches
+    snapshot = (caches.dgraph, caches.store, caches.allocation, caches._adj_cache, caches.epoch)
+    counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
+    params = [dict(layer) for layer in eng.model.layers]
+    out, launches, events_log = {}, {}, {}
+
+    def log_events(label, events):
+        rows = []
+        for e in events:
+            split = {k: round(v * 1e3, 3) for k, v in e.pause_split.items()}
+            rows.append(dict(e.summary(), pause_split_ms=split))
+            log(f"    {label} epoch {e.epoch} ({e.reason}): pause {e.pause_seconds * 1e3:.3f} ms "
+                f"= {split} ms; window {e.window_batches} batches, miss rate "
+                f"{e.window_miss_rate:.4f}; feat +{e.delta.feat.rows_inserted} "
+                f"-{e.delta.feat.rows_evicted} ={e.delta.feat.rows_kept}, adj nodes changed "
+                f"{e.delta.adj.nodes_changed}, regathered {e.delta.adj.elements_regathered}")
+        events_log[label] = rows
+
+    # (a) The engine: refresh on against refresh off, the same batches,
+    # each call's wall on the host clock (the stage total leaves out the
+    # retire path: the refresh pauses and the telemetry).
+    batches = eng._batches(REFRESH_BATCHES)
+    cfg = EngineConfig(use_kernel=True, pipeline_depth=SERVE_DEPTH)
+    t0 = time.perf_counter()
+    off = eng.run(config=cfg, batches=batches, collect_outputs=True)
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t0
+    off_out = np.stack(eng.last_outputs)
+    eq1_calls = []  # Eq. 1's inputs (the decayed lap history) and its split, per refresh
+
+    def recorded_eq1(alloc, sample_s, feature_s, **kw):
+        got = reallocate_capacity(alloc, sample_s, feature_s, **kw)
+        eq1_calls.append((sum(sample_s), sum(feature_s), got.adj_bytes))
+        return got
+
+    crm.reallocate_capacity = recorded_eq1
+    try:
+        t0 = time.perf_counter()
+        on, counts = counted_run(lambda: eng.run(
+            config=cfg, batches=batches, collect_outputs=True,
+            refresh=RefreshConfig(mode="interval", interval_batches=REFRESH_INTERVAL)), counters)
+        torch.cuda.synchronize()
+        on_wall = time.perf_counter() - t0
+    finally:
+        crm.reallocate_capacity = reallocate_capacity
+    on_out = np.stack(eng.last_outputs)
+    launches["engine"] = counts
+    if not np.array_equal(on_out, off_out):
+        raise AssertionError("refresh changed the engine's logits")
+    if len(on.refresh_events) < 3 or counts["cached_gather"] == 0:
+        raise AssertionError(f"engine refresh: {len(on.refresh_events)} events, launches {counts}")
+    per_epoch = sum(v["batches"] for v in on.epoch_hits.values())
+    if per_epoch != on.num_batches or caches.epoch != snapshot[4] + len(on.refresh_events):
+        raise AssertionError(f"epochs {on.epoch_hits} do not partition {on.num_batches} batches")
+    log(f"  engine: {len(on.refresh_events)} refreshes over {on.num_batches} batches, logits "
+        f"equal to refresh off; run() wall {on_wall:.4f} s (off {off_wall:.4f} s), stage total "
+        f"{on.total_seconds:.4f} s (off {off.total_seconds:.4f} s); feat hit "
+        f"{on.feat_hit_rate:.4f} (off {off.feat_hit_rate:.4f}), adj hit {on.adj_hit_rate:.4f} "
+        f"(off {off.adj_hit_rate:.4f}); launches {counts}")
+    # What Eq. 1 reads: the preparation profile's synchronized laps seed
+    # the history, and each window's depth-2 laps (dispatch times) are
+    # folded in at the refresh; the step bound then clamps its split.
+    pre = eng.pipeline.presample
+    log(f"    preparation laps: sample {sum(pre.sample_times):.4f} s : feature "
+        f"{sum(pre.feature_times):.4f} s, the build's adj share "
+        f"{snapshot[2].adj_bytes / snapshot[2].total_bytes:.4f}")
+    for i, (smp, feat, want) in enumerate(eq1_calls):
+        log(f"    refresh {i + 1}: Eq. 1 on the decayed laps sample {smp:.4f} s : feature "
+            f"{feat:.4f} s asks adj {want} B; applied adj "
+            f"{on.refresh_events[i].delta.allocation.adj_bytes} B")
+    alloc_walk = [snapshot[2]] + [e.delta.allocation for e in on.refresh_events]
+    for ep, row in sorted(on.epoch_hits.items()):
+        a = alloc_walk[ep - snapshot[4]]
+        log(f"    epoch {ep}: adj {a.adj_bytes} B, feat {a.feat_bytes} B; {row['batches']} "
+            f"batches, adj hit {row['adj_hit_rate']:.4f}, feat hit {row['feat_hit_rate']:.4f}")
+    log_events("engine", on.refresh_events)
+    out["engine"] = {"on": on.summary(), "off": off.summary(), "on_wall_s": on_wall,
+                     "off_wall_s": off_wall, "eq1": eq1_calls}
+
+    # (b) Serving under mode "all": 3 streams, a join after serving began,
+    # then a leave.  Every stream's logits equal its solo run.
+    queues = make_stream_batches(ds, num_streams=SERVE_STREAMS, batches_per_stream=SERVE_BATCHES,
+                                 batch_size=BATCH, seed=SEED + 100)
+    seeds = [SEED + 100 + sid for sid in range(SERVE_STREAMS)]
+    server = MultiStreamServer(eng, config=ServeConfig(engine=cfg.replace(
+        refresh_mode="all", refresh_interval=2 * SERVE_BATCHES)))
+    for sid in range(SERVE_STREAMS - 1):
+        server.add_stream(queues[sid], seed=seeds[sid], collect_outputs=True)
+    t0 = time.perf_counter()
+    rep1, c1 = serve_run(server, counters)
+    t_join = time.perf_counter()
+    server.add_stream(queues[-1], seed=seeds[-1], collect_outputs=True)
+    join_s = time.perf_counter() - t_join
+    rep2, c2 = serve_run(server, counters)
+    server.remove_stream(SERVE_STREAMS - 1)
+    serve_s = time.perf_counter() - t0
+    launches["serve_all"] = {k: c1[k] + c2[k] for k in c1}
+    reasons = [e.reason for e in server.refresh_manager.events]
+    if "stream-join" not in reasons or reasons[-1] != "stream-leave" or "interval" not in reasons:
+        raise AssertionError(f"serving refreshes {reasons}")
+    for sid, q in enumerate(queues):
+        solo = GNNInferenceEngine(ds, model="graphsage", fanouts=FANOUTS, batch_size=BATCH,
+                                  seed=seeds[sid], params=params, device="cuda")
+        solo.pipeline = eng.pipeline
+        solo.run(config=EngineConfig(use_kernel=True, pipeline_depth=1), batches=list(q),
+                 collect_outputs=True)
+        got = server.streams[sid].runtime.outputs
+        if len(got) != len(q) or not all(np.array_equal(a, b)
+                                         for a, b in zip(solo.last_outputs, got)):
+            raise AssertionError(f"refresh serve: stream {sid}'s logits differ from its solo run")
+    log(f"  serve, mode all: {len(reasons)} refreshes {reasons}; every stream equal to its solo "
+        f"run; the join (presampling {seeds[-1]} at full size, then a refresh) took "
+        f"{join_s:.3f} s; walls {rep1.wall_seconds:.4f} + {rep2.wall_seconds:.4f} s "
+        f"(serving, the join and the leave {serve_s:.2f} s); per epoch {rep2.epochs}")
+    log_events("serve", server.refresh_manager.events)
+    out["serve_all"] = {"reasons": reasons, "join_s": join_s, "walls": [
+        rep1.wall_seconds, rep2.wall_seconds], "epochs": rep2.epochs}
+
+    # (c) A refresh_fill fault: the one refresh (2 streams x 4 batches, an
+    # interval of 8) rolls back, and serving goes on at the old epoch.
+    epoch0 = caches.epoch
+    plan = FaultPlan(rules=(FaultRule("refresh_fill", max_faults=1),))
+    server = MultiStreamServer(eng, config=ServeConfig(engine=cfg.replace(
+        refresh_mode="interval", refresh_interval=SERVE_BATCHES), fault_policy="retry",
+        retry_backoff_ms=0.1), injector=FaultInjector(plan))
+    for sid in range(2):
+        server.add_stream(queues[sid][:SERVE_BATCHES // 2], seed=seeds[sid],
+                          collect_outputs=True)
+    rep, counts = serve_run(server, counters)
+    launches["refresh_fill"] = counts
+    failures = server.refresh_manager.failures
+    if (len(failures) != 1 or failures[0].epoch != epoch0 or rep.availability != 1.0
+            or rep.faults["refresh_fill"]["faults"] != 1):
+        raise AssertionError(f"refresh_fill: failures {failures}, availability "
+                             f"{rep.availability}, faults {rep.faults}")
+    log(f"  refresh_fill: 1 refresh rolled back at epoch {epoch0} "
+        f"({failures[0].error}, {failures[0].pause_seconds * 1e3:.3f} ms), "
+        f"{len(rep.refresh_events)} committed after it, availability {rep.availability}")
+    out["refresh_fill"] = {"failure": failures[0].summary(), "committed": len(rep.refresh_events)}
+
+    # (d) Back to phase 12's caches, then a growing refresh alone: the
+    # rollback's same-tensors property on the card, and the allocator's peak.
+    (caches.dgraph, caches.store, caches.allocation, caches._adj_cache, caches.epoch) = snapshot
+    stats = eng.pipeline.presample
+    tensors = [caches.store.hot_table, caches.store.position_map, caches.dgraph.cache_row_index]
+    clones = [t.clone() for t in tensors]
+    alloc = caches.allocation
+    grow = dataclasses.replace(alloc, total_bytes=alloc.total_bytes + alloc.feat_bytes,
+                               feat_bytes=2 * alloc.feat_bytes)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    delta = caches.refresh(allocation=grow, node_counts=stats.node_counts,
+                           edge_counts=stats.edge_counts)
+    torch.cuda.synchronize()
+    grow_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    if not all(torch.equal(t, c) for t, c in zip(tensors, clones)):
+        raise AssertionError("a refresh wrote into the previous epoch's tensors")
+    log(f"  growing refresh (feature budget x2): {grow_s * 1e3:.3f} ms (adj "
+        f"{delta.adj_seconds * 1e3:.3f}, feat {delta.feat_seconds * 1e3:.3f}); hot table "
+        f"{tuple(tensors[0].shape)} -> {tuple(caches.store.hot_table.shape)}, "
+        f"+{delta.feat.rows_inserted} rows; allocator peak {peak / 1e9:.3f} GB over "
+        f"{base_mem / 1e9:.3f} GB; the previous epoch's tensors unchanged")
+    (caches.dgraph, caches.store, caches.allocation, caches._adj_cache, caches.epoch) = snapshot
+    del clones, delta
+
+    # (e) The telemetry's per-batch cost at full size: the read-back of the
+    # frontier, hit mask and edge slots, and the numpy scatters.
+    store = caches.store
+    block = sample_blocks(caches.dgraph, eng._seeds(batches[0]), FANOUTS,
+                          generator=torch.Generator(device="cuda").manual_seed(SEED))
+    _, hit = store.gather(block.input_nodes, use_kernel=True)
+    torch.cuda.synchronize()
+    tel = WorkloadTelemetry(ds.num_nodes, ds.graph.num_edges)
+    reads, scatters = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = (block.input_nodes.cpu().numpy(), hit.cpu().numpy(),
+                [sl.cpu().numpy() for sl in block.edge_slots])
+        t1 = time.perf_counter()
+        tel.observe_batch(*host)
+        t2 = time.perf_counter()
+        reads.append(t1 - t0)
+        scatters.append(t2 - t1)
+    log(f"  telemetry per batch ({block.input_nodes.shape[0]} frontier rows, "
+        f"{sum(sl.numel() for sl in block.edge_slots)} edge slots): read-back "
+        f"{min(reads) * 1e3:.3f} ms, observe_batch {min(scatters) * 1e3:.3f} ms (min of 3)")
+    out["telemetry_ms"] = {"read": min(reads) * 1e3, "observe": min(scatters) * 1e3}
+    out.update(events=events_log, launches=launches, grow={
+        "seconds": grow_s, "peak_bytes": peak, "base_bytes": base_mem,
+        "rows_before": int(tensors[0].shape[0])})
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(ds, eng, serving) -> dict:
+    """Sharded serving with SHARDS co-resident shards on the card, held to
+    phase 12's MultiStreamServer; an interval refresh with repartitions;
+    a ``shard_exchange`` failover and rejoin."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import EngineConfig, ServeConfig
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule
+    from repro_torch.graph.sampling import sample_blocks
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.runtime.gnn_serve import make_stream_batches
+    from repro_torch.runtime.sharded_serve import ShardedServer
+
+    phase(f"14. sharded serving: {SHARDS} shards co-resident on the card, {SERVE_STREAMS} "
+          f"streams x {SERVE_BATCHES} batches, depth {SERVE_DEPTH}")
+    caches = eng.pipeline.caches
+    snapshot = (caches.dgraph, caches.store, caches.allocation, caches._adj_cache, caches.epoch)
+    counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
+    queues = make_stream_batches(ds, num_streams=SERVE_STREAMS, batches_per_stream=SERVE_BATCHES,
+                                 batch_size=BATCH, seed=SEED)
+    seeds = [SEED + sid for sid in range(SERVE_STREAMS)]
+    out, launches = {}, {}
+
+    class CheckedServer(ShardedServer):
+        """Holds every repartition's rows to its epoch's hot set."""
+
+        def _apply_refresh_event(self, event):
+            super()._apply_refresh_event(event)
+            rows = sum(self.repartition_log[-1]["rows_after"])
+            if rows != self.engine.pipeline.caches.store.num_cached:
+                raise AssertionError(f"epoch {event.epoch}: the shards hold {rows} rows, the "
+                                     f"base {self.engine.pipeline.caches.store.num_cached}")
+
+    def serve(label, cfg, *, n_streams=SERVE_STREAMS, n_batches=SERVE_BATCHES, injector=None):
+        t0 = time.perf_counter()
+        server = CheckedServer(eng, config=cfg, injector=injector)
+        build_s = time.perf_counter() - t0
+        for sid in range(n_streams):
+            server.add_stream(queues[sid][:n_batches], seed=seeds[sid], collect_outputs=True)
+        server._warmup_sharded(server._warmup_seeds())
+        rep, counts = serve_run(server, counters, warmup=False)
+        launches[label] = counts
+        outs = [np.stack(st.runtime.outputs) for st in server.streams]
+        log_serve(label, rep, counts)
+        return server, rep, counts, outs, build_s
+
+    def cfg(**kw):
+        return ServeConfig(engine=EngineConfig(use_kernel=True, pipeline_depth=SERVE_DEPTH, **kw),
+                           mesh=SHARDS)
+
+    for label, dedup in (("kernel", False), ("kernel_dedup", True)):
+        server, rep, counts, outs, build_s = serve(f"sharded_{label}", cfg(dedup=dedup))
+        kernel = "cached_gather_blocks" if dedup else "cached_gather"
+        gathers = sum(p["gathers"] for p in rep.shards)
+        nonempty = [p["gathers"] for p in rep.shards]
+        if counts[kernel] != gathers or gathers == 0 or rep.kernel_fallbacks:
+            raise AssertionError(f"sharded {label}: {counts} launches, {gathers} non-empty "
+                                 f"shard segments")
+        want = serving["hits"][label]
+        got = [(st.adj_hits, st.adj_lookups, st.feat_hits, st.feat_lookups) for st in rep.streams]
+        if got != [tuple(h) for h in want]:
+            raise AssertionError(f"sharded {label}: hit counts {got}, phase 12 {want}")
+        if any(not np.array_equal(a, b) for a, b in zip(outs, serving["outputs"][label])):
+            raise AssertionError(f"sharded {label}: logits differ from phase 12's")
+        for key in ("feat_hits", "feat_lookups", "adj_hits", "adj_lookups"):
+            if sum(p[key] for p in rep.shards) != getattr(rep, key):
+                raise AssertionError(f"sharded {label}: per-shard {key} do not tile the total")
+        if not all(fs.host_table.is_pinned() for fs in server.sharded.store.shards):
+            raise AssertionError("a shard's host table is not pinned")
+        log(f"    equal to phase 12 (logits, hit counts); per-shard hits "
+            f"{[p['feat_hits'] for p in rep.shards]} tile {rep.feat_hits}; #{1 + dedup} "
+            f"launched {counts[kernel]} times = the non-empty shard segments {nonempty} over "
+            f"{rep.total_batches} batches; wall {rep.wall_seconds:.4f} s against phase 12's "
+            f"{serving['walls'][label]:.4f} s; shards built in {build_s:.3f} s; rows cached "
+            f"{[p['rows_cached'] for p in rep.shards]}")
+        out[label] = dict(rep.summary(), build_s=build_s, phase12_wall_s=serving["walls"][label])
+        if not dedup:
+            base_outs = outs
+
+    # The host side of the exchange, per batch at full size: the frontier's
+    # id read, the partition, and the retire's per-shard accounting.
+    frontier = sample_blocks(caches.dgraph, eng._seeds(queues[0][0]), FANOUTS,
+                             generator=torch.Generator(device="cuda").manual_seed(SEED)).input_nodes
+    torch.cuda.synchronize()
+    part_t, read_t = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ids = frontier.cpu().numpy()
+        t1 = time.perf_counter()
+        part = server.sharded.store.partition(ids)
+        t2 = time.perf_counter()
+        read_t.append(t1 - t0)
+        part_t.append(t2 - t1)
+    log(f"  host partition per batch ({ids.size} ids, {SHARDS} shards): id read "
+        f"{min(read_t) * 1e3:.3f} ms, partition {min(part_t) * 1e3:.3f} ms (min of 3); "
+        f"segments {part.seg_len}")
+    out["partition_ms"] = {"read": min(read_t) * 1e3, "partition": min(part_t) * 1e3}
+
+    # Interval refresh with a repartition per epoch (2 streams x 8 batches).
+    server, rep, counts, outs, _ = serve(
+        "sharded_refresh", cfg(refresh_mode="interval", refresh_interval=SERVE_BATCHES),
+        n_streams=2)
+    if not rep.refresh_events or len(server.repartition_log) != len(rep.refresh_events):
+        raise AssertionError(f"sharded refresh: {len(rep.refresh_events)} events, "
+                             f"{len(server.repartition_log)} repartitions")
+    if any(not np.array_equal(a, b) for a, b in zip(outs, base_outs)):
+        raise AssertionError("sharded refresh: logits differ from the refresh-free serve")
+    log(f"    {len(rep.refresh_events)} refreshes, each repartitioned: "
+        f"{[(e['epoch'], e['rows_after']) for e in server.repartition_log]}; logits equal; "
+        f"shard allocations {[a.total_bytes for a in server.shard_allocations]} B")
+    out["refresh"] = {"repartition_log": server.repartition_log, "wall_s": rep.wall_seconds}
+    (caches.dgraph, caches.store, caches.allocation, caches._adj_cache, caches.epoch) = snapshot
+
+    # A shard lost mid-exchange: served from its host table, then rejoined.
+    plan = FaultPlan(rules=(FaultRule("shard_exchange", start_after=2, max_faults=1, shard=1,
+                                      down_for=4),))
+    server, rep, counts, outs, _ = serve("sharded_failover", cfg(), injector=FaultInjector(plan))
+    if (rep.failovers != [{"shard": 1, "down_for": 4, "call": 2}] or server.sharded.down
+            or rep.availability != 1.0):
+        raise AssertionError(f"failover: {rep.failovers}, down {server.sharded.down}, "
+                             f"availability {rep.availability}")
+    if any(not np.array_equal(a, b) for a, b in zip(outs, base_outs)):
+        raise AssertionError("failover: logits differ from the healthy sharded serve")
+    # The down shard's segments are read from its host view by #1 too, so
+    # every non-empty segment launches once; the faulted attempt adds the
+    # launches of the shards exchanged before the victim (at most SHARDS - 1).
+    gathers = sum(p["gathers"] for p in rep.shards)
+    redone = counts["cached_gather"] - gathers
+    if gathers != launches["sharded_kernel"]["cached_gather"] or not 0 <= redone < SHARDS:
+        raise AssertionError(f"failover: #1 launched {counts['cached_gather']} times for "
+                             f"{gathers} non-empty shard segments")
+    log(f"    shard 1 failed over at exchange call 2 for 4 retired batches and rejoined; logits "
+        f"equal; #1 launched {counts['cached_gather']} times = {gathers} non-empty segments "
+        f"(the down shard's included) + {redone} redone by the faulted attempt")
+    out["failover"] = dict(rep.summary())
+    out["launches"] = launches
+    torch.cuda.empty_cache()
+    return out
 
 
 def cli_phase() -> dict:
@@ -1680,19 +2081,24 @@ def main() -> int:
     baselines = baselines_phase(ds, eng)
     layerwise = layerwise_phase(ds, eng)
     serving = serving_phase(ds, eng)
+    refresh = refresh_phase(ds, eng)
+    sharded = sharded_phase(ds, eng, serving)
+    del serving["outputs"]
     # Launches on the paths: the nine routes, the baselines', the
-    # layer-wise and the serving runs, each counted from 0 just before it.
+    # layer-wise, the serving, refresh and sharded runs, each counted from
+    # 0 just before it.
+    phases = {"12": serving["launches"], "13": refresh["launches"], "14": sharded["launches"]}
     path_launches = {
         name: main_path["launches"][name]
         + sum(c[name] for c in baselines["launches"].values())
         + sum(c[name] for c in layerwise["launches"].values())
-        + sum(c[name] for c in serving["launches"].values())
+        + sum(c[name] for runs in phases.values() for c in runs.values())
         for name in main_path["launches"]
     }
-    serve_launches = {name: sum(c[name] for c in serving["launches"].values())
-                      for name in main_path["launches"]}
-    log(f"launches on the paths (phases 8, 10, 11, 12): {path_launches}; phase 12 alone: "
-        f"{serve_launches}")
+    serve_launches = {p: {name: sum(c[name] for c in runs.values())
+                          for name in main_path["launches"]} for p, runs in phases.items()}
+    log(f"launches on the paths (phases 8, 10-14): {path_launches}; phases 12, 13 and 14 "
+        f"alone: {serve_launches}")
 
     kernels = []
     for row in rows:
@@ -1724,7 +2130,8 @@ def main() -> int:
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
-        "layerwise": layerwise, "serving": serving, "cli": cli, "path_launches": path_launches,
+        "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
+        "cli": cli, "path_launches": path_launches,
         "serve_launches": serve_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,
     }, indent=1))

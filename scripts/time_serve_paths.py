@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the prefetch routes and degraded serving of the PyTorch port on a card.
+"""Time the kernel routes and degraded serving of the PyTorch port on a card.
 
     python3 scripts/time_serve_paths.py [--src DIR] [--reps N] [--degraded]
 
@@ -9,9 +9,10 @@ can be timed on one card in one session, in turns.  Set-up is
 ``chip_smoke.py``'s main path: ogbn-products at Table II size, ``dci``
 with 256 MB of cache, GraphSAGE 3x128, fan-outs 15,10,5, batch 1024.
 
-Always timed, ``--reps`` rounds in turns: the four prefetch routes
-(kernel and kernel + dedup, depth 1 and 2), 8 batches each after the
-engine's warmup batch, as ``chip_smoke.py`` phase 8 runs them; and one
+Always timed, ``--reps`` rounds in turns: the eight kernel routes
+(kernel and kernel + dedup, with and without prefetch, depth 1 and 2),
+8 batches each after the engine's warmup batch, as ``chip_smoke.py``
+phase 8 runs them; and one
 batch's prefetch staging alone (host clock around a synchronized
 ``prefetch_misses``) beside the id read it starts with.
 
@@ -48,10 +49,9 @@ CACHE_BYTES = 256 * 10**6
 BATCHES = 8
 STREAMS = 4
 ROUTES = {
-    "kernel_prefetch_d1": dict(dedup=False, pipeline_depth=1),
-    "kernel_prefetch_d2": dict(dedup=False, pipeline_depth=2),
-    "kernel_dedup_prefetch_d1": dict(dedup=True, pipeline_depth=1),
-    "kernel_dedup_prefetch_d2": dict(dedup=True, pipeline_depth=2),
+    f"kernel{'_dedup' * dedup}{'_prefetch' * prefetch}_d{depth}":
+        dict(dedup=dedup, prefetch=prefetch, pipeline_depth=depth)
+    for dedup in (False, True) for prefetch in (False, True) for depth in (1, 2)
 }
 
 
@@ -71,7 +71,7 @@ def card_sync(eng):
     return torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
 
 
-def prefetch_readings(eng, reps: int) -> dict:
+def route_readings(eng, reps: int) -> dict:
     import torch
 
     from repro_torch.core.config import EngineConfig
@@ -80,7 +80,7 @@ def prefetch_readings(eng, reps: int) -> dict:
     runs = {label: [] for label in ROUTES}
     for _ in range(reps):
         for label, kw in ROUTES.items():
-            cfg = EngineConfig(use_kernel=True, prefetch=True, **kw)
+            cfg = EngineConfig(use_kernel=True, **kw)
             rep = eng.run(config=cfg, max_batches=BATCHES)
             runs[label].append({"total_s": rep.total_seconds,
                                 "prefetch_s": rep.prefetch_seconds})
@@ -200,7 +200,7 @@ def main() -> int:
     eng = GNNInferenceEngine(ds, model="graphsage", fanouts=FANOUTS, batch_size=BATCH,
                              seed=SEED, device="cuda")
     eng.prepare("dci", config=EngineConfig(), total_cache_bytes=CACHE_BYTES)
-    out = {"card": card, "src": str(args.src), "prefetch": prefetch_readings(eng, args.reps)}
+    out = {"card": card, "src": str(args.src), "kernel_routes": route_readings(eng, args.reps)}
     if args.degraded:
         out["degraded"] = degraded_readings(ds, eng)
     print(json.dumps(out))

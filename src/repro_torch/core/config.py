@@ -22,8 +22,7 @@ Every consumer (``GNNInferenceEngine``, ``MultiStreamServer``,
 
 Refresh fields are kept inline (mode/interval/threshold) rather than
 nesting a ``RefreshConfig`` so this module stays import-cycle-free (core
-must not import runtime at module level).  Online refresh is not ported
-yet: :meth:`EngineConfig.refresh_config` raises when any of them is set.
+must not import runtime at module level).
 """
 
 from __future__ import annotations
@@ -114,23 +113,17 @@ class EngineConfig:
         )
 
     def refresh_config(self):
-        """``None`` with every refresh field at its default; online refresh
-        is not ported yet, so any other mode, interval or threshold raises
-        rather than being silently ignored."""
-        set_ = {
-            name: value
-            for name, value, default in (
-                ("refresh_mode", self.refresh_mode, "off"),
-                ("refresh_interval", self.refresh_interval, 8),
-                ("refresh_miss_threshold", self.refresh_miss_threshold, None),
-            )
-            if value != default
-        }
-        if not set_:
+        """The runtime :class:`~repro_torch.runtime.cache_refresh.
+        RefreshConfig` these fields describe, or ``None`` with refresh off
+        (lazy import — see the module docstring)."""
+        if self.refresh_mode == "off":
             return None
-        raise NotImplementedError(
-            f"{', '.join(f'{k}={v!r}' for k, v in set_.items())}: online cache refresh "
-            "is not ported yet (ROADMAP.md, A-item 15)"
+        from repro_torch.runtime.cache_refresh import RefreshConfig
+
+        return RefreshConfig(
+            mode=self.refresh_mode,
+            interval_batches=self.refresh_interval,
+            miss_threshold=self.refresh_miss_threshold,
         )
 
     def resolved(self, pipe=None, *, pipeline_depth=None, chunk_size=None) -> "EngineConfig":

@@ -22,10 +22,6 @@ Fault sites (``SITES``) are the stack's external-dependency edges:
   ``refresh_fill``    the delta re-fill applying a refresh epoch
   ==================  ====================================================
 
-The port checks the first four; ``shard_exchange`` and ``refresh_fill``
-stay valid plan entries that nothing checks yet (sharded serving and
-online refresh are not ported: ROADMAP.md, A-items 17 and 15).
-
 The injector is *optional everywhere*: every guarded call site reads
 ``injector=None`` (or ``self.injector is None``) and skips the check
 entirely, so a run without an injector is bit-for-bit the pre-fault

@@ -433,11 +433,13 @@ def refresh_feature_cache(
         freed slots, lowest node id into the lowest free slot.
 
     The hot table only grows, by doubling (capped at the node count) when
-    the new set needs more rows than it has.  ``store`` is left as it was:
-    the new store gets its own hot table and position map (a copy when
-    nothing grows), and shares ``host_table``, so gathered rows stay
-    bit-identical — a refresh changes hit accounting and byte movement,
-    never outputs."""
+    the new set needs more rows than it has.  ``store`` is left as it was,
+    because batches still in flight may read it: whatever the refresh
+    writes goes into new tensors (a grown table, or a clone of the hot
+    table when rows are inserted; a new position map when any row moves),
+    and what it does not write is shared, ``host_table`` always.  Gathered
+    rows stay bit-identical — a refresh changes hit accounting and byte
+    movement, never outputs."""
     host = store.host_table
     n, f = host.shape
     row_bytes = f * host.element_size()
@@ -462,8 +464,10 @@ def refresh_feature_cache(
         pad = store.hot_table.new_zeros((grow_to - physical, f))
         hot_table = torch.cat([store.hot_table, pad])
         physical = grow_to
-    else:
+    elif inserted_nodes.size:
         hot_table = store.hot_table.clone()
+    else:  # nothing is written: evicted slots are only unmapped
+        hot_table = store.hot_table
 
     # Free slots = every physical slot not held by a kept row, filled in
     # ascending order (deterministic given the same inputs).
@@ -480,11 +484,11 @@ def refresh_feature_cache(
         hot_table.index_copy_(
             0, torch.from_numpy(free_slots.astype(np.int64)).to(device), rows.to(device)
         )
-    new_store = FeatureStore(
-        host_table=host,
-        hot_table=hot_table,
-        position_map=torch.from_numpy(new_pos_np).to(device),
-    )
+    if inserted_nodes.size or evicted_nodes.size:
+        position_map = torch.from_numpy(new_pos_np).to(device)
+    else:
+        position_map, new_pos_np = store.position_map, old_pos
+    new_store = FeatureStore(host_table=host, hot_table=hot_table, position_map=position_map)
     object.__setattr__(new_store, "_position_np", new_pos_np)
     return new_store, FeatureRefreshStats(
         rows_kept=int(kept_nodes.shape[0]),

@@ -151,15 +151,19 @@ def _on_cuda(hot, host, indices, positions) -> bool:
 
 def _host_pointer(host: torch.Tensor) -> int:
     """The address the kernel reads the host table at: the device pointer
-    of a CUDA tensor, or the UVA device address of pinned host memory."""
+    of a CUDA tensor, or the UVA device address of pinned host memory.
+    The address is asked for the pinned allocation's base (where its
+    storage starts) and the tensor's byte offset added, so a view into a
+    pinned table — a shard's row range — reads its own rows."""
     if host.is_cuda:
         return host.data_ptr()
+    base = host.untyped_storage().data_ptr()
     dev = ctypes.c_void_p()
     _check_status(
-        load_library().dci_host_device_pointer(host.data_ptr(), ctypes.byref(dev)),
+        load_library().dci_host_device_pointer(base, ctypes.byref(dev)),
         "cudaHostGetDevicePointer",
     )
-    return dev.value
+    return dev.value + (host.data_ptr() - base)
 
 
 def _vec_bytes(row_bytes: int, *ptrs: int) -> int:

@@ -15,8 +15,12 @@ request-level serving on an arrival clock (runtime/request_queue.py):
     PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
         --arrival burst --admission slo --slo-ms 400 --batches-per-stream 3
 
-``--faults PLAN.json`` replays a fault plan (core/faults.py) under
-``--fault-policy`` and ``--degraded-mode``.  ``--policy`` takes dci, sci,
+``--refresh-mode interval|events|all`` (with ``--refresh-interval`` and
+``--refresh-miss-threshold``) refreshes the caches online
+(runtime/cache_refresh.py); ``--mesh K`` shards the feature store into K
+node-id ranges (runtime/sharded_serve.py).  ``--faults PLAN.json`` replays
+a fault plan (core/faults.py) under ``--fault-policy`` and
+``--degraded-mode``.  ``--policy`` takes dci, sci,
 aci, dgl, ducati and rain; ``--mode layerwise`` scores every node layer by
 layer in ``--chunk-size`` node ranges instead of sampling mini-batches.
 Runs on the CUDA card unless ``--device cpu`` is given; with no card and
@@ -225,39 +229,43 @@ def main(argv: list[str] | None = None) -> None:
         "--mesh",
         type=int,
         default=0,
-        help="shard the feature store across this many devices: not ported yet "
-        "(ROADMAP.md, A-item 17); any value but 0 raises",
+        help="shard the feature store by node-id range into this many shards "
+        "(runtime/sharded_serve.py), one per card while there are cards, "
+        "co-resident on one card beyond that; 0 (default) serves unsharded",
     )
     ap.add_argument(
         "--refresh-mode",
         default="off",
         choices=REFRESH_MODES,
-        help="online cache refresh: not ported yet (ROADMAP.md, A-item 15); any "
-        "mode but 'off' raises",
+        help="online cache refresh: 'interval' re-allocates (Eq. 1 on the "
+        "measured serve-time stage ratio) and delta re-fills every "
+        "--refresh-interval retired batches; 'events' refreshes on stream "
+        "join/leave; 'all' does both.  Off (default) keeps the caches as "
+        "prepared",
     )
     ap.add_argument(
-        "--refresh-interval", type=int, default=8,
-        help="see --refresh-mode; any value but 8 raises",
+        "--refresh-interval",
+        type=int,
+        default=8,
+        help="retired batches between interval refreshes (interval/all modes)",
     )
     ap.add_argument(
-        "--refresh-miss-threshold", type=float, default=None,
-        help="see --refresh-mode; any value raises",
+        "--refresh-miss-threshold",
+        type=float,
+        default=None,
+        help="refresh as soon as the live telemetry window's feature miss rate "
+        "crosses this value, beside the interval/event triggers (needs "
+        "--refresh-mode != off)",
     )
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
     if args.trace_profiler and args.trace is None:
         ap.error("--trace-profiler requires --trace")
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharded serving is not ported yet (ROADMAP.md, A-item 17)"
-        )
     if args.arrival == "burst":
         args.streams = 2  # the burst trace is one flash-crowd + one steady stream
-    # One typed config carries every knob from here down; refresh_config()
-    # raises when any refresh flag is set (not ported yet).
+    # One typed config carries every knob from here down.
     cfg = ServeConfig.from_args(args)
-    cfg.engine.refresh_config()
     tracer = Tracer(profiler_annotations=args.trace_profiler) if args.trace is not None else None
     metrics = MetricsRegistry() if args.metrics is not None else None
 
@@ -327,8 +335,13 @@ def main(argv: list[str] | None = None) -> None:
         for sid, requests in enumerate(trace):
             server.add_request_stream(requests, seed=eng.seed + sid)
         rep = server.run(raise_on_error=raise_on_error)
-    elif args.streams > 1:
-        server = MultiStreamServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+    elif args.streams > 1 or args.mesh > 0:
+        if args.mesh > 0:
+            from repro_torch.runtime.sharded_serve import ShardedServer
+
+            server = ShardedServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+        else:
+            server = MultiStreamServer(eng, config=cfg, tracer=tracer, metrics=metrics)
         queues = make_stream_batches(
             ds,
             num_streams=args.streams,
@@ -336,8 +349,9 @@ def main(argv: list[str] | None = None) -> None:
             batch_size=args.batch_size,
             seed=eng.seed,
         )
+        seeds = stream_seeds if stream_seeds is not None else [eng.seed]
         for sid, queue in enumerate(queues):
-            server.add_stream(queue, seed=stream_seeds[sid])
+            server.add_stream(queue, seed=seeds[sid])
         rep = server.run(raise_on_error=raise_on_error)
     else:
         # The servers resolve the injector from cfg.faults; the single-stream

@@ -36,8 +36,17 @@ and feature stages charge their fault sites and run under the retry
 policy; a ``kernel_gather`` fault reroutes that gather to the table route
 (counted in ``kernel_fallbacks``), and under ``degraded_mode`` a dead
 miss path serves cache-only rows.  A real error, from a CUDA build or
-launch included, is never retried or rerouted.  Online refresh is not
-ported yet (ROADMAP.md, A-item 15) and raises when asked for.
+launch included, is never retried or rerouted.
+
+Online refresh (``EngineConfig.refresh_mode`` or ``run(refresh=...)``,
+:mod:`repro_torch.runtime.cache_refresh`): the retire path records each
+batch into a telemetry window, and the refresh manager re-allocates and
+delta re-fills the shared ``DualCache`` between batches.  A batch reads
+the caches at the points the reference reads them — the adjacency cache
+at sample time (where its epoch is stamped), the feature store at
+prefetch and feature time — so its hits land in the epoch the reference
+books them to.  Logits are the same with refresh on or off; hit counts
+come per epoch in ``InferenceReport.epoch_hits``.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ __all__ = [
     "auto_pipeline_depth",
     "modeled_transfer_seconds",
     "stream_stages",
+    "summarize_epoch_counters",
 ]
 
 # Link rates for the modeled-transfer projection (bytes/s), from NVIDIA's
@@ -143,6 +153,10 @@ class InferenceReport:
     dedup: bool = False
     unique_rows: int = 0
     gathered_rows: int = 0
+    # Online-refresh accounting (empty/None with refresh off, leaving the
+    # report as it was):
+    refresh_events: list = dataclasses.field(default_factory=list)
+    epoch_hits: dict | None = None  # epoch -> per-epoch hit-rate summary
     # The RESOLVED config the run executed with (every knob concrete).
     config: EngineConfig | None = None
     device: str = "cpu"
@@ -214,6 +228,11 @@ class InferenceReport:
             out["unique_rows"] = self.unique_rows
             out["gathered_rows"] = self.gathered_rows
             out["duplication_factor"] = self.duplication_factor
+        if self.refresh_events:
+            # Per-epoch rates beside the lifetime ones: a lifetime mean
+            # hides the recovery a refresh exists to produce.
+            out["refresh_events"] = [e.summary() for e in self.refresh_events]
+            out["per_epoch"] = self.epoch_hits
         if self.metrics is not None:
             out["metrics"] = self.metrics
         return out
@@ -230,7 +249,11 @@ class StreamRuntime:
     single shared cache, which the stages only read, so each stream's
     draws, reuse and counts equal its solo run.  Stage methods are invoked
     in the stream's batch order at any pipeline depth, which is what the
-    generator's sequence, the batch count and the reuse state rely on."""
+    generator's sequence, the batch count and the reuse state rely on.
+
+    Hits are also counted per cache epoch (``epoch_counters``), and with
+    online refresh on, each retired batch is recorded into the refresh
+    manager's ``telemetry`` sink."""
 
     def __init__(
         self,
@@ -281,6 +304,13 @@ class StreamRuntime:
         self.prefetched_rows = 0
         self.unique_rows = 0  # sum of per-batch distinct input nodes (dedup)
         self.gathered_rows = 0  # rows the feature stage actually gathered
+        # Per-cache-epoch counters: epoch -> [adj_hits, adj_lookups,
+        # feat_hits, feat_lookups, batches].  With refresh off everything
+        # lands in epoch 0.
+        self.epoch_counters: dict[int, list[int]] = {}
+        # Serve-time telemetry sink (set by the refresh manager's owner);
+        # None records nothing at retire.
+        self.telemetry = None
         self.outputs: list[np.ndarray] | None = [] if collect_outputs else None
         # RAIN cross-batch reuse state (only touched when the policy asks).
         self._prev_map = np.full(pipe.caches.store.num_nodes, -1, np.int64)
@@ -338,7 +368,9 @@ class StreamRuntime:
 
     # ------------------------------------------------------------- stages
     def sample(self, ctx):
-        caches = self.pipe.caches
+        # The cache epoch the batch samples against: its hits are booked
+        # to it at retire even if a refresh lands while it is in flight.
+        ctx.epoch = self.pipe.caches.epoch
         if self.injector is not None and self.injector.active("adj_fetch"):
             # Charged BEFORE the draw, so a retried attempt samples the same
             # batch.  Adjacency has no degraded fallback: exhausted retries
@@ -347,7 +379,7 @@ class StreamRuntime:
         draws = None if self.draws is None else self.draws[self._batch]
         self._batch += 1
         block = sample_blocks(
-            caches.dgraph,
+            self._sample_graph(),
             ctx.payload,
             self.fanouts,
             generator=self.generator,
@@ -355,7 +387,7 @@ class StreamRuntime:
             dedup=self.dedup,
             # Pad the unique bucket's tail with a known-cached id, so pad
             # slots are feature-cache hits, never phantom miss rows.
-            dedup_pad_id=caches.store.pad_node_id() if self.dedup else None,
+            dedup_pad_id=self.pipe.caches.store.pad_node_id() if self.dedup else None,
         )
         bh, bt = block.adj_hit_stats()
         if self.dedup:
@@ -376,6 +408,9 @@ class StreamRuntime:
         ctx.outputs["_dedup"] = view
         return view
 
+    def _dedup_view(self, ctx):
+        return ctx.outputs["_dedup"]
+
     def prefetch_stage(self, ctx):
         """Stage the batch's MISSED host rows onto the device.
 
@@ -392,16 +427,13 @@ class StreamRuntime:
         The ids are read back before the fault envelope, so a timed
         attempt covers the host pack and the copies' dispatch, not the
         wait for the card."""
-        store = self.pipe.caches.store
         nu = None
         if self.dedup:
-            _, nu, _, nodes = ctx.outputs["_dedup"]
+            _, nu, _, nodes = self._dedup_view(ctx)
         else:
             nodes = ctx.outputs["sample"][0].input_nodes
         nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
-        stage = lambda: store.prefetch_misses(  # noqa: E731
-            nodes, num_live=nu, injector=self.injector
-        )
+        stage = lambda: self._prefetch(ctx, nodes, num_live=nu)  # noqa: E731
         if self.injector is None:
             staged = stage()
         else:
@@ -418,9 +450,24 @@ class StreamRuntime:
         self.prefetched_rows += staged.num_miss
         return staged
 
-    # The sharded server (ROADMAP.md, A-item 17) will override these two
-    # cache-access hooks, and only these, so every stage's control flow
-    # and accounting stays the same across layouts.
+    # ------------------------------------------------- cache-access hooks
+    # The sharded server (runtime/sharded_serve.py) overrides these four,
+    # and only these, so every stage's control flow, draws and accounting
+    # stay the same across layouts.
+    def _sample_graph(self):
+        """The DeviceGraph the sample stage expands against (the stream's
+        adjacency replica in the sharded path)."""
+        return self.pipe.caches.dgraph
+
+    def _prefetch(self, ctx, nodes, num_live=None):
+        """Stage a batch's missed host rows (``nodes`` on the host); the
+        result, with its ``num_miss``, is what the consuming ``_gather``
+        takes as ``prefetched``."""
+        del ctx
+        return self.pipe.caches.store.prefetch_misses(
+            nodes, num_live=num_live, injector=self.injector
+        )
+
     def _gather(self, ctx, indices, **gather_kw):
         """Two-source feature gather over ``indices`` → ``(feats, hit)``."""
         del ctx
@@ -483,14 +530,14 @@ class StreamRuntime:
             # Gather each distinct row once (sorted ids → the row-block
             # kernel's contiguous runs on the kernel route); the per-visit
             # hit mask is the unique mask expanded through the inverse map.
-            dd, nu, bucket, uids = ctx.outputs["_dedup"]
+            dd, nu, bucket, uids = self._dedup_view(ctx)
             feats_u, hit_u = self._gather_ft(
                 ctx, uids, row_block=ROW_BLOCK if self.use_kernel else None, **gather_kw
             )
             hit = hit_u[dd.inverse.to(torch.int64)]
             self.unique_rows += nu
             self.gathered_rows += bucket
-            return feats_u, hit, hit.sum()
+            return feats_u, hit, hit.sum(), hit_u
         self.gathered_rows += int(block.input_nodes.shape[0])
         nodes = None
         if self.pipe.reuse_prev_batch:
@@ -522,21 +569,53 @@ class StreamRuntime:
 
     def compute(self, ctx):
         feats = ctx.outputs["feature"][0]
-        inverse = ctx.outputs["_dedup"][0].inverse if self.dedup else None
+        inverse = self._dedup_view(ctx)[0].inverse if self.dedup else None
         with torch.inference_mode():
             return self.model(feats, inverse_index=inverse)
 
     def record(self, ctx) -> None:
         """Host-side accounting; runs per batch, in order, after the batch's
-        stage outputs are ready, so the int() reads are cheap."""
-        _, bh, bt = ctx.outputs["sample"]
-        hit, hsum = ctx.outputs["feature"][1], ctx.outputs["feature"][2]
-        self.adj_hits += int(bh)
-        self.adj_lookups += int(bt)
-        self.feat_hits += int(hsum)
-        self.feat_lookups += int(hit.shape[0])
+        stage outputs are ready, so the int() reads are cheap.  With a
+        telemetry sink it also reads the batch's frontier, hit mask and
+        edge slots back to the host (the reference's semantics: one
+        device-to-host read of each per retired batch)."""
+        block, bh, bt = ctx.outputs["sample"]
+        feature_out = ctx.outputs["feature"]
+        hit, hsum = feature_out[1], feature_out[2]
+        bh, bt, hsum, lookups = int(bh), int(bt), int(hsum), int(hit.shape[0])
+        self.adj_hits += bh
+        self.adj_lookups += bt
+        self.feat_hits += hsum
+        self.feat_lookups += lookups
+        per_epoch = self.epoch_counters.setdefault(ctx.epoch, [0, 0, 0, 0, 0])
+        per_epoch[0] += bh
+        per_epoch[1] += bt
+        per_epoch[2] += hsum
+        per_epoch[3] += lookups
+        per_epoch[4] += 1
+        if self.telemetry is not None:
+            slots = [s.cpu().numpy() for s in block.edge_slots]
+            if self.dedup:
+                # One scatter per unique node, weighted by its visit
+                # multiplicity: the same counters as the per-visit form.
+                dd, nu, _, uids = self._dedup_view(ctx)
+                mult = np.bincount(dd.inverse.cpu().numpy(), minlength=nu)[:nu]
+                self.telemetry.observe_batch(
+                    uids[:nu].cpu().numpy(),
+                    feature_out[3][:nu].cpu().numpy(),
+                    slots,
+                    multiplicities=mult,
+                )
+            else:
+                self.telemetry.observe_batch(
+                    block.input_nodes.cpu().numpy(), hit.cpu().numpy(), slots
+                )
         if self.outputs is not None:
             self.outputs.append(ctx.outputs["compute"].cpu().numpy())
+
+    def epoch_hit_rates(self) -> dict[int, dict]:
+        """Per-epoch hit-rate summary (one entry per cache epoch served)."""
+        return summarize_epoch_counters(self.epoch_counters)
 
 
 def stream_stages(runtime_of, *, prefetch: bool = False) -> list[Stage]:
@@ -568,6 +647,20 @@ def stream_stages(runtime_of, *, prefetch: bool = False) -> list[Stage]:
         ),
         Stage("compute", lambda c: runtime_of(c).compute(c), lambda c: c.outputs["compute"]),
     ]
+
+
+def summarize_epoch_counters(counters: dict[int, list[int]]) -> dict[int, dict]:
+    """Per-epoch hit-rate summary from ``[adj_hits, adj_lookups, feat_hits,
+    feat_lookups, batches]`` counter lists (the StreamRuntime layout),
+    shared by the per-stream and the serve-aggregate reports."""
+    return {
+        epoch: {
+            "batches": c[4],
+            "adj_hit_rate": round(c[0] / max(c[1], 1), 4),
+            "feat_hit_rate": round(c[2] / max(c[3], 1), 4),
+        }
+        for epoch, c in sorted(counters.items())
+    }
 
 
 # Below this, a measured stage lap is indistinguishable from clock noise.
@@ -737,6 +830,25 @@ class GNNInferenceEngine:
         with torch.inference_mode():
             block_until_ready(self.model(wfeats, inverse_index=inverse))
 
+    def warmup_refresh_growth(
+        self,
+        seeds: np.ndarray,
+        *,
+        use_kernel: bool | None = None,
+        gather_buffers: int | None = None,
+        dedup: bool | None = None,
+    ) -> None:
+        """A no-op, kept for the reference's API.
+
+        The reference runs one gather against the hot table's next growth
+        size so the program that size compiles is built off the serve
+        path.  Eager torch and the CUDA kernels compile nothing per table
+        size (a kernel takes the row count as an argument), so a growing
+        refresh has nothing to warm and no run calls this."""
+        del seeds, use_kernel, gather_buffers, dedup
+        if self.pipeline is None:
+            raise RuntimeError("call prepare() first")
+
     # ------------------------------------------------------ adaptive depth
     def resolve_pipeline_depth(self, depth=None, *, seeds=None) -> int:
         """Resolve the ``pipeline_depth`` knob, including ``"auto"``: one
@@ -790,6 +902,7 @@ class GNNInferenceEngine:
         draws: Sequence[Sequence[torch.Tensor]] | None = None,
         tracer=None,
         metrics=None,
+        refresh=None,
         injector=None,
         retry_policy=None,
         degraded_mode: bool = False,
@@ -808,7 +921,17 @@ class GNNInferenceEngine:
         ``injector`` (a :class:`~repro_torch.core.faults.FaultInjector`),
         ``retry_policy`` and ``degraded_mode`` arm the stream's fault
         envelope (see :class:`StreamRuntime`); without an injector the run
-        is the plain one.
+        is the plain one.  The injector also charges the ``refresh_fill``
+        site of each refresh.
+
+        ``refresh`` takes a :class:`~repro_torch.runtime.cache_refresh.
+        RefreshConfig` (default: the one the config's ``refresh_*`` fields
+        describe): an enabled mode re-allocates and delta re-fills the
+        caches from live telemetry on the retire path.  Logits are the
+        same with refresh on or off; hits come per epoch in
+        ``report.epoch_hits``.  With ``"auto"`` depth and refresh both on,
+        each refresh re-derives the window from the refreshed stage laps
+        and applies it to the live executor.
 
         ``config.mode="layerwise"`` scores EVERY node through the chunked
         full-graph executor (:func:`~repro_torch.runtime.layerwise.
@@ -819,7 +942,8 @@ class GNNInferenceEngine:
             raise RuntimeError("call prepare() first")
         pipe = self.pipeline
         cfg = config if config is not None else EngineConfig()
-        cfg.refresh_config()  # raises unless refresh is off
+        if refresh is None:
+            refresh = cfg.refresh_config()
         requested = self.pipeline_depth if cfg.pipeline_depth is None else cfg.pipeline_depth
         if cfg.mode == "layerwise":
             from repro_torch.runtime.layerwise import run_layerwise
@@ -871,11 +995,41 @@ class GNNInferenceEngine:
         )
         rt.tracer = tracer
         clock = StageClock(overlap=depth > 1)
+        manager = None
+        if refresh is not None and refresh.enabled:
+            from repro_torch.runtime.cache_refresh import CacheRefreshManager
+
+            manager = CacheRefreshManager(
+                pipe,
+                self.dataset,
+                fanouts=self.fanouts,
+                batch_size=self.batch_size,
+                config=refresh,
+            )
+            manager.register_clock(clock, key=0)
+            manager.tracer = tracer
+            manager.injector = injector
+            rt.telemetry = manager.telemetry_for(0)
+        auto_depth = requested == "auto" and manager is not None
+
+        def on_retire(ctx):
+            # Retire runs between batch dispatches, so a refresh lands
+            # here: in-flight batches keep the old epoch's tensors, the
+            # next dispatch reads the new epoch.
+            rt.record(ctx)
+            if manager is not None:
+                event = manager.note_retired()
+                if event is not None and auto_depth and manager.suggested_depth:
+                    # The executor re-reads ``depth`` between batches; the
+                    # window never drops below 2, keeping the clock's
+                    # overlap semantics.
+                    executor.depth = manager.suggested_depth
+
         executor = PipelinedExecutor(
             stream_stages(lambda c: rt, prefetch=rt.prefetch),
             depth=depth,
             clock=clock,
-            on_retire=rt.record,
+            on_retire=on_retire,
             tracer=tracer,
         )
         executor.run(self._seeds(b) for b in batches)
@@ -905,6 +1059,8 @@ class GNNInferenceEngine:
             dedup=rt.dedup,
             unique_rows=rt.unique_rows,
             gathered_rows=rt.gathered_rows,
+            refresh_events=list(manager.events) if manager is not None else [],
+            epoch_hits=rt.epoch_hit_rates() if manager is not None else None,
             config=resolved,
             device=str(self.device),
         )
@@ -915,6 +1071,10 @@ class GNNInferenceEngine:
             for name in ("sample", "prefetch", "feature", "compute"):
                 metrics.gauge("stage_seconds", policy=pipe.name, stage=name).set(
                     clock.total(name)
+                )
+            for epoch, rates in (report.epoch_hits or {}).items():
+                metrics.gauge("feat_hit_rate", policy=pipe.name, epoch=epoch).set(
+                    rates["feat_hit_rate"]
                 )
             report.metrics = metrics.snapshot()
         return report

@@ -33,8 +33,16 @@ retry`): ``ServeConfig.fault_policy`` is ``"fail"`` (the first unrecovered
 fault ends the run), ``"retry"`` (bounded backoff, then fail) or
 ``"shed"`` (retry, then drop just the failing batch and keep serving).
 Only fault-subsystem errors are shed; any other error, a kernel's
-included, propagates.  Online refresh is not ported yet (ROADMAP.md,
-A-item 15): a refresh mode other than off raises.
+included, propagates.
+
+Online refresh (``ServeConfig.engine.refresh_mode``, or ``refresh=``)
+closes the loop for long-lived serving: the retire path records each
+batch into a telemetry window, and a :class:`~repro_torch.runtime.
+cache_refresh.CacheRefreshManager` re-allocates (Eq. 1) and delta
+re-fills the shared ``DualCache`` on the interval, on a stream's join
+(``add_stream`` after serving began) or leave (``remove_stream``), or on
+the miss-rate threshold.  Logits stay those of the refresh-free serve;
+hits come per epoch.  With refresh off the caches never change.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from repro_torch.runtime.gnn_engine import (
     StreamRuntime,
     modeled_transfer_seconds,
     stream_stages,
+    summarize_epoch_counters,
 )
 from repro_torch.runtime.pipeline import PipelinedExecutor
 from repro_torch.utils.timing import StageClock
@@ -128,6 +137,7 @@ class StreamReport:
     prefetched_rows: int = 0
     unique_rows: int = 0  # distinct input rows (dedup; 0 when off)
     gathered_rows: int = 0  # rows the feature stage actually gathered
+    epoch_hits: dict | None = None  # per-cache-epoch rates (refresh on)
     # Latency distribution (admit→retire for queue serves; the request
     # front-end overwrites the samples with enqueue→retire):
     p50_latency_s: float = 0.0
@@ -175,6 +185,8 @@ class StreamReport:
         if self.deadline_total:
             out["deadline_hits"] = self.deadline_hits
             out["deadline_total"] = self.deadline_total
+        if self.epoch_hits is not None:
+            out["per_epoch"] = self.epoch_hits
         return out
 
 
@@ -196,6 +208,9 @@ class ServeReport:
     prefetch: bool = False
     dedup: bool = False
     device: str = "cpu"
+    # Online-refresh accounting (refresh off: empty/None, summary as before):
+    refresh_events: list = dataclasses.field(default_factory=list)
+    epochs: dict | None = None  # aggregate per-epoch hit rates across streams
     # Global latency distribution over every stream's samples pooled:
     p50_latency_s: float = 0.0
     p95_latency_s: float = 0.0
@@ -213,6 +228,11 @@ class ServeReport:
     fault_policy: str = "fail"
     faults: dict | None = None  # FaultInjector.counts() at report time
     error: str | None = None  # terminal error repr (run(raise_on_error=False))
+    failovers: list = dataclasses.field(default_factory=list)  # shard-loss log
+    # Sharded serving (runtime/sharded_serve.py): per-shard hit/byte/
+    # allocation accounting; the unsharded server leaves the defaults.
+    num_shards: int = 1
+    shards: list | None = None
     # The RESOLVED ServeConfig the serve loop ran with (knobs and caps read
     # back off the live server at report time).
     config: ServeConfig | None = None
@@ -352,12 +372,22 @@ class ServeReport:
             out["stage_retries"] = self.stage_retries
             out["kernel_fallbacks"] = self.kernel_fallbacks
             out["unserved"] = self.unserved
+        if self.failovers:
+            out["failovers"] = self.failovers
         if self.error is not None:
             out["error"] = self.error
         if self.dedup:
             out["unique_rows"] = self.unique_rows
             out["gathered_rows"] = self.gathered_rows
             out["duplication_factor"] = self.duplication_factor
+        if self.epochs is not None:
+            # With refresh on, the lifetime aggregate above hides the
+            # post-refresh recovery: the per-epoch split is the headline.
+            out["per_epoch"] = self.epochs
+            out["refresh_events"] = [e.summary() for e in self.refresh_events]
+        if self.shards is not None:
+            out["num_shards"] = self.num_shards
+            out["per_shard"] = self.shards
         if self.metrics is not None:
             out["metrics"] = self.metrics
         return out
@@ -384,6 +414,12 @@ class MultiStreamServer:
     miss-row staging stage into the shared schedule; a stream's staged
     buffers live in its admitted batches' contexts and are released at
     retire, so the cap also bounds its staged buffers.
+
+    ``refresh`` (default: the RefreshConfig that ``config.engine``'s
+    refresh fields describe) puts a refresh manager on the retire path.
+    ``config.mesh`` is read by :class:`~repro_torch.runtime.sharded_serve.
+    ShardedServer` (and the CLI, which builds one); this class serves
+    unsharded.
     """
 
     def __init__(
@@ -391,6 +427,7 @@ class MultiStreamServer:
         engine: GNNInferenceEngine,
         *,
         config: ServeConfig | None = None,
+        refresh=None,
         tracer=None,
         metrics=None,
         injector=None,
@@ -402,11 +439,6 @@ class MultiStreamServer:
         self.tracer = resolve_tracer(tracer)
         self.metrics = metrics
         cfg = config or ServeConfig()
-        cfg.engine.refresh_config()  # raises unless refresh is off (A-item 15)
-        if cfg.mesh:
-            raise NotImplementedError(
-                "sharded serving (mesh) is not ported yet (ROADMAP.md, A-item 17)"
-            )
         self.config = cfg
         # The injector is a live handle like tracer/metrics — pass one in,
         # or point ``cfg.faults`` at a FaultPlan JSON.  With neither, every
@@ -421,6 +453,7 @@ class MultiStreamServer:
         self.fault_policy = cfg.fault_policy
         self._last_error: str | None = None
         depth = 2 if cfg.engine.pipeline_depth is None else cfg.engine.pipeline_depth
+        self._auto_depth = depth == "auto"
         if depth == "auto":
             depth = engine.resolve_pipeline_depth("auto")
         if depth < 1:
@@ -428,6 +461,26 @@ class MultiStreamServer:
         self.engine = engine
         self.depth = depth
         pipe = engine.pipeline
+        if refresh is None:
+            refresh = cfg.engine.refresh_config()
+        self.refresh_manager = None
+        if refresh is not None and refresh.enabled:
+            from repro_torch.runtime.cache_refresh import CacheRefreshManager
+
+            self.refresh_manager = CacheRefreshManager(
+                pipe,
+                engine.dataset,
+                fanouts=engine.fanouts,
+                batch_size=engine.batch_size,
+                config=refresh,
+            )
+            # Weighted telemetry merges (stream_weighting != "none") ask the
+            # server for each stream's live pressure at refresh time.
+            self.refresh_manager.set_weight_fn(self._stream_weight)
+            self.refresh_manager.tracer = self.tracer
+            self.refresh_manager.injector = self.injector
+        self._started = False  # join/leave events fire only once serving began
+        self._executor = None  # the live executor during run() (auto-depth hook)
         self._serve_t0 = None  # perf_counter at serve start (arrival clock origin)
         eng_cfg = cfg.engine
         self.prefetch = pipe.prefetch if eng_cfg.prefetch is None else eng_cfg.prefetch
@@ -438,6 +491,9 @@ class MultiStreamServer:
         self.dedup = (
             pipe.dedup if eng_cfg.dedup is None else eng_cfg.dedup
         ) and not pipe.reuse_prev_batch
+        # A defaulted cap follows the window when refresh-aware auto depth
+        # resizes it mid-run; an explicit cap is the caller's and stays.
+        self._explicit_inflight_cap = cfg.max_inflight is not None
         self.max_inflight = cfg.max_inflight if cfg.max_inflight is not None else depth
         if self.max_inflight < 1:
             raise ValueError("max_inflight_per_stream must be >= 1")
@@ -461,7 +517,12 @@ class MultiStreamServer:
         alone against the same prepared pipeline.  ``draws[b][l]``
         (optional) is the stream's batch ``b`` slot-draw tensor for layer
         ``l``, as :meth:`GNNInferenceEngine.run` takes them — the seam the
-        tests replay the JAX reference's draws through."""
+        tests replay the JAX reference's draws through.
+
+        With online refresh on, a stream added AFTER serving began is a
+        serve-time join: the refresh manager presamples its seed, merges
+        the profile into its history and (in the event modes) refreshes
+        the shared cache for the new union workload."""
         sid = len(self.streams)
         if seed is None:
             seed = self.engine.seed + sid
@@ -477,13 +538,21 @@ class MultiStreamServer:
             queue=collections.deque(np.asarray(b) for b in batches),
         )
         self.streams.append(state)
+        if self.refresh_manager is not None:
+            # Under weighting "none" telemetry_for returns the shared sink;
+            # otherwise each stream records into its own, weighted at
+            # refresh time.
+            runtime.telemetry = self.refresh_manager.telemetry_for(sid)
+            self.refresh_manager.register_clock(state.clock, key=sid)
+            if self._started:
+                self.refresh_manager.on_stream_join(seed)
         return state
 
     def _make_runtime(
         self, sid: int, seed: int, *, collect_outputs: bool, draws=None
     ) -> StreamRuntime:
         """Construct one stream's :class:`StreamRuntime` (the sharded
-        server of ROADMAP.md A-item 17 overrides this).  The generator is
+        server overrides this).  The generator is
         seeded ``seed + 1`` on the engine's device, as the engine's own."""
         del sid
         eng = self.engine
@@ -506,6 +575,16 @@ class MultiStreamServer:
             retry_policy=self.retry_policy,
             degraded_mode=self.degraded_mode,
         )
+
+    def remove_stream(self, stream_id: int) -> StreamState:
+        """Serve-time leave: drop the stream's remaining queue (batches in
+        flight still retire) and, with refresh on, merge the workload
+        without it and refresh the shared cache."""
+        state = self.streams[stream_id]
+        state.queue.clear()
+        if self.refresh_manager is not None and self._started:
+            self.refresh_manager.on_stream_leave(state.seed)
+        return state
 
     # ---------------------------------------------------------- admission
     def _next_stream(self, eligible: Sequence[StreamState]) -> StreamState:
@@ -621,6 +700,12 @@ class MultiStreamServer:
             self.metrics.counter("batches_retired_total", stream=s.stream_id).inc()
             self.metrics.counter("seeds_served_total", stream=s.stream_id).inc(n_seeds)
         s.retired += 1
+        if self.refresh_manager is not None:
+            # Retire runs between dispatches, so a refresh lands here:
+            # in-flight batches keep the old epoch's tensors.
+            event = self.refresh_manager.note_retired()
+            if event is not None:
+                self._apply_refresh_event(event)
 
     # ------------------------------------------------------ fault shedding
     @staticmethod
@@ -685,12 +770,16 @@ class MultiStreamServer:
                 self._shed_inflight(s, s.submitted - 1, root)
 
     def _apply_refresh_event(self, event) -> None:
-        """The hook an online refresh calls on the retire path (the sharded
-        server repartitions its stores here).  Online refresh is not ported
-        yet (ROADMAP.md, A-item 15), so nothing calls it."""
-        raise NotImplementedError(
-            f"refresh event {event!r}: online refresh is not ported yet (ROADMAP.md, A-item 15)"
-        )
+        """React to a refresh that just fired on the retire path: resize
+        the auto-depth window (the sharded server also repartitions its
+        per-shard stores to the new epoch)."""
+        del event
+        depth = self.refresh_manager.suggested_depth
+        if self._auto_depth and self._executor is not None and depth:
+            # Applies at the next admission.
+            self._executor.depth = self.depth = depth
+            if not self._explicit_inflight_cap:
+                self.max_inflight = depth
 
     # ----------------------------------------------------------------- run
     def _warmup_seeds(self) -> np.ndarray | None:
@@ -700,6 +789,13 @@ class MultiStreamServer:
             if s.queue:
                 return s.queue[0]
         return None
+
+    def _stream_weight(self, key) -> float:
+        """Live pressure of stream ``key`` for weighted telemetry merges:
+        1 + queued batches + batches in flight (the request front-end
+        adds SLO pressure)."""
+        s = self.streams[key]
+        return 1.0 + len(s.queue) + s.inflight
 
     def run(self, *, warmup: bool = True, raise_on_error: bool = True) -> ServeReport:
         """Serve every queued batch and return the :class:`ServeReport`.
@@ -711,6 +807,7 @@ class MultiStreamServer:
         against ``report.availability``.  Any other error propagates."""
         if not self.streams:
             raise RuntimeError("add_stream() at least one stream before run()")
+        self._started = True
         if warmup:
             seeds = self._warmup_seeds()
             if seeds is not None:
@@ -729,6 +826,7 @@ class MultiStreamServer:
             on_batch_error=self._on_batch_error if self.fault_policy == "shed" else None,
             tracer=self.tracer,
         )
+        self._executor = executor
         self._last_error = None
         self._serve_t0 = t0 = time.perf_counter()
         if self.tracer.enabled:
@@ -743,6 +841,7 @@ class MultiStreamServer:
                 raise
             self._last_error = repr(err)
         wall = time.perf_counter() - t0
+        self._executor = None
         report = self._serve_report(wall)
         if self.metrics is not None:
             self._record_metrics(report)
@@ -758,11 +857,17 @@ class MultiStreamServer:
             m.gauge("adj_hit_rate", stream=sr.stream_id).set(sr.adj_hit_rate)
             if sr.requests_shed:
                 m.counter("requests_shed_total", stream=sr.stream_id).inc(sr.requests_shed)
+            for epoch, rates in (sr.epoch_hits or {}).items():
+                m.gauge("feat_hit_rate", stream=sr.stream_id, epoch=epoch).set(
+                    rates["feat_hit_rate"]
+                )
+        for ev in report.refresh_events:
+            m.counter("refresh_epochs_total", reason=ev.reason).inc()
 
     def _resolved_config(self) -> ServeConfig:
         """The ServeConfig the serve loop ACTUALLY ran with: auto depth
-        resolved, knobs defaulted from the prepared pipeline, the cap's
-        follow-the-window default applied."""
+        resolved (and any refresh-driven resize), knobs defaulted from the
+        prepared pipeline, the cap's follow-the-window default applied."""
         return self.config.replace(
             max_inflight=self.max_inflight,
             engine=self.config.engine.replace(
@@ -791,6 +896,10 @@ class MultiStreamServer:
             prefetch=self.prefetch,
             dedup=self.dedup,
             device=str(self.engine.device),
+            refresh_events=(
+                list(self.refresh_manager.events) if self.refresh_manager is not None else []
+            ),
+            epochs=self._aggregate_epochs() if self.refresh_manager is not None else None,
             p50_latency_s=p50,
             p95_latency_s=p95,
             p99_latency_s=p99,
@@ -809,6 +918,16 @@ class MultiStreamServer:
         """Work still queued when the serve loop ended; the availability
         denominator counts it as offered-but-not-served."""
         return sum(len(s.queue) for s in self.streams)
+
+    def _aggregate_epochs(self) -> dict[int, dict]:
+        """Per-epoch counters summed across streams: the shared cache's view."""
+        totals: dict[int, list[int]] = {}
+        for s in self.streams:
+            for epoch, c in s.runtime.epoch_counters.items():
+                agg = totals.setdefault(epoch, [0, 0, 0, 0, 0])
+                for i, v in enumerate(c):
+                    agg[i] += v
+        return summarize_epoch_counters(totals)
 
     def _stream_report(self, s: StreamState) -> StreamReport:
         rt = s.runtime
@@ -834,6 +953,7 @@ class MultiStreamServer:
             prefetched_rows=rt.prefetched_rows,
             unique_rows=rt.unique_rows,
             gathered_rows=rt.gathered_rows,
+            epoch_hits=rt.epoch_hit_rates() if self.refresh_manager is not None else None,
             requests_shed=s.batches_shed,
             requests_timed_out=s.batches_timed_out,
             requests_retried=s.batches_retried,

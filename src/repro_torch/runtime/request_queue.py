@@ -453,6 +453,22 @@ class RequestQueueServer(MultiStreamServer):
         super()._shed_inflight(s, idx, root)
 
     # ----------------------------------------------------------- reporting
+    def _stream_weight(self, key) -> float:
+        """Queue-depth pressure plus SLO pressure: requests that have
+        arrived and will (at the stream's median latency) finish at or
+        past their deadline each add 1."""
+        s = self.streams[key]
+        reqs = getattr(s, "requests", ())
+        base = 1.0 + len(reqs) + s.inflight
+        now = self._now()
+        est = float(np.median(s.latencies)) if s.latencies else 0.0
+        pressure = sum(
+            1
+            for r in reqs
+            if r.deadline_s is not None and r.arrival_s <= now and r.deadline_s <= now + est
+        )
+        return base + pressure
+
     def _stream_report(self, s: StreamState) -> StreamReport:
         rep = super()._stream_report(s)
         completed = getattr(s, "completed", [])

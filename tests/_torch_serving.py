@@ -6,8 +6,9 @@ Two kinds of engine:
   * ``port_engine`` — the port alone, prepared on its own (its Eq. 1 split
     reads wall clocks, so outputs are compared only within the port);
   * ``ref_pair`` — a JAX reference engine prepared with ``stream_seeds``
-    and a port engine built from the reference's presample counts, split
-    and weights, so the two serve the same caches; ``replay_draws``
+    and a port engine built from the reference's presample profile, split
+    and weights, so the two serve the same caches (and an online refresh
+    starts from the same history); ``replay_draws``
     recovers a reference stream's slot draws (its runtime splits
     ``PRNGKey(seed + 1)`` once per batch), which the port's streams take
     through ``add_stream(draws=...)``.
@@ -25,6 +26,7 @@ from repro.runtime.gnn_engine import GNNInferenceEngine as JaxEngine
 from repro_torch.core.allocation import CacheAllocation
 from repro_torch.core.cache import DualCache
 from repro_torch.core.policies import PreparedPipeline
+from repro_torch.core.presample import PresampleStats
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.models.gnn.models import params_from_jax
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
@@ -77,8 +79,16 @@ def ref_pair(small_dataset, policy="dci"):
         ds, fanouts=FANOUTS, batch_size=BATCH, device="cpu",
         params=params_from_jax([{k: np.asarray(v) for k, v in p.items()} for p in ref.params]),
     )
+    presample = None
+    if rpipe.presample is not None:
+        rs = rpipe.presample
+        presample = PresampleStats(
+            node_counts=np.asarray(rs.node_counts), edge_counts=np.asarray(rs.edge_counts),
+            sample_times=list(rs.sample_times), feature_times=list(rs.feature_times),
+            peak_workload_bytes=rs.peak_workload_bytes, n_batches=rs.n_batches,
+        )
     eng.pipeline = PreparedPipeline(
-        name=rpipe.name, caches=caches, prep_seconds=0.0,
+        name=rpipe.name, caches=caches, prep_seconds=0.0, presample=presample,
         reuse_prev_batch=rpipe.reuse_prev_batch,
     )
     return ref, eng

@@ -198,19 +198,24 @@ def test_other_policies_prepare(policy):
 
 
 def test_unported_options_raise():
-    """Online refresh is still unported, and raises; every policy, both
-    modes and fault injection are ported (a faulted prefetch raises the
-    injected fault, not NotImplementedError)."""
+    """Nothing of the GNN side is left unported: online refresh runs (and
+    refuses only what the reference refuses — a cacheless policy has
+    nothing to refresh), every policy and both modes run, and a faulted
+    prefetch raises the injected fault, not NotImplementedError."""
     ds = load_dataset("reddit", scale=0.001, seed=1)
     pipe = prepare("dci", ds, total_cache_bytes=1000, fanouts=FANOUTS, batch_size=32,
                    device="cpu", prefetch=True)
     assert pipe.prefetch  # ported: recorded as the runs' default
     eng = GNNInferenceEngine(ds, fanouts=FANOUTS, batch_size=32, device="cpu")
     eng.prepare("dgl")
-    for cfg in (EngineConfig(refresh_mode="interval"),
-                EngineConfig(mode="layerwise", refresh_mode="events")):
-        with pytest.raises(NotImplementedError, match="refresh"):
-            eng.run(config=cfg, max_batches=1)
+    with pytest.raises(ValueError, match="refreshable"):
+        eng.run(config=EngineConfig(refresh_mode="interval"), max_batches=1)
+    rep = GNNInferenceEngine(ds, fanouts=FANOUTS, batch_size=32, device="cpu",
+                             params=[dict(layer) for layer in eng.model.layers])
+    rep.pipeline = pipe
+    report = rep.run(config=EngineConfig(refresh_mode="interval", refresh_interval=1),
+                     max_batches=2)
+    assert len(report.refresh_events) == report.num_batches == pipe.caches.epoch >= 1
     from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule, InjectedFault
 
     injector = FaultInjector(FaultPlan(rules=(FaultRule("prefetch"),)))

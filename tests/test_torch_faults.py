@@ -12,9 +12,14 @@ envelope of ``StreamRuntime`` and the servers' fault policies).
     error, an injected ``kernel_gather`` fault reroutes that gather to the
     table route with identical outputs;
   * a real error — a kernel's ``RuntimeError`` — is never retried,
-    rerouted or shed.
+    rerouted or shed;
+  * transactional refresh — a refresh that dies mid-apply leaves the same
+    tensors with the same bytes and serving goes on at the old epoch;
+  * shard failover — a lost shard's range is served from its host table
+    with the same outputs until it rejoins.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -537,3 +542,115 @@ def test_cli_replays_a_fault_plan(capsys, tmp_path):
     rep = json.loads(capsys.readouterr().out)
     assert rep["fault_policy"] == "retry" and rep["faults"]["host_fetch"]["faults"] == 2
     assert rep["batches"] == 4 and rep["availability"] == 1.0 and rep["stage_retries"] == 2
+
+
+# ------------------------------------------------------------ refresh rollback
+
+
+@settings(max_examples=5, deadline=None)
+@given(failed_attempts=st.integers(1, 3))
+def test_property_refresh_rollback_is_byte_identical(dataset, failed_attempts):
+    """However many refresh attempts die mid-apply, the cache keeps the old
+    epoch's objects with unchanged bytes, and a later clean refresh lands."""
+    eng = port_engine(dataset)
+    caches, stats = eng.pipeline.caches, eng.pipeline.presample
+    objs = (caches.dgraph, caches.store, caches.allocation, caches._adj_cache, caches.epoch)
+    tensors = [caches.store.hot_table, caches.store.position_map, caches.dgraph.cache_ptr,
+               caches.dgraph.cache_row_index, caches.dgraph.cached_len]
+    clones = [t.clone() for t in tensors]
+    grow = dataclasses.replace(caches.allocation, total_bytes=4 * caches.allocation.total_bytes,
+                               feat_bytes=4 * caches.allocation.feat_bytes)
+    inj = FaultInjector(FaultPlan(rules=(FaultRule("refresh_fill", max_faults=failed_attempts),)))
+    for _ in range(failed_attempts):
+        with pytest.raises(InjectedFault):
+            caches.refresh(allocation=grow, node_counts=stats.node_counts,
+                           edge_counts=stats.edge_counts, injector=inj)
+        assert all(a is b for a, b in zip(
+            (caches.dgraph, caches.store, caches.allocation, caches._adj_cache), objs))
+        assert caches.epoch == objs[4]
+        assert all(torch.equal(t, c) for t, c in zip(tensors, clones))
+    delta = caches.refresh(allocation=grow, node_counts=stats.node_counts,
+                           edge_counts=stats.edge_counts, injector=inj)
+    assert caches.epoch == objs[4] + 1 == delta.epoch
+    assert all(torch.equal(t, c) for t, c in zip(tensors, clones))  # the old epoch, untouched
+
+
+def test_refresh_manager_records_rollback_and_serving_continues(dataset):
+    """A refresh_fill fault mid-serve rolls the epoch back and serving
+    finishes on the stale epoch: availability 1.0, the failure recorded,
+    logits those of the refresh-free serve."""
+    eng = port_engine(dataset)
+    queues = _queues(dataset)
+    cfg0 = ServeConfig(engine=EngineConfig(pipeline_depth=2))
+    _, _, ob = _serve(eng, queues, cfg=cfg0)
+    plan = FaultPlan(rules=(FaultRule("refresh_fill", max_faults=1),))
+    cfg = cfg0.replace(engine=cfg0.engine.replace(refresh_mode="interval", refresh_interval=2),
+                       **_fast_retry())
+    srv, rep, of = _serve(eng, queues, cfg=cfg, injector=FaultInjector(plan))
+    (failure,) = srv.refresh_manager.failures
+    assert failure.epoch == 0 and "InjectedFault" in failure.error
+    assert failure.summary()["reason"] == "interval"
+    assert rep.availability == 1.0 and rep.faults["refresh_fill"]["faults"] == 1
+    assert eng.pipeline.caches.epoch >= 1  # later refreshes committed
+    for a, b in zip(ob, of):
+        assert_same_outputs(a, b)
+
+
+# ------------------------------------------------------------- shard failover
+
+
+def _serve_sharded(engine, queues, injector, **cfg_kw):
+    from repro_torch.runtime.sharded_serve import ShardedServer
+
+    cfg = ServeConfig(engine=EngineConfig(pipeline_depth=2, **cfg_kw))
+    srv = ShardedServer(engine, config=cfg, num_shards=2, injector=injector)
+    for sid, q in enumerate(queues):
+        srv.add_stream(q, seed=STREAM_SEEDS[sid], collect_outputs=True)
+    rep = srv.run()
+    return srv, rep, [s.runtime.outputs for s in srv.streams]
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_shard_failover_serves_lost_range_from_host_and_rejoins(engine, dataset, use_kernel):
+    """Losing a shard mid-serve routes its id range to its host table —
+    outputs and hit accounting stay those of the healthy sharded serve,
+    per-shard hits still tile the global counters, and the shard rejoins
+    after its down_for window."""
+    queues = _queues(dataset)
+    _, rb, ob = _serve_sharded(engine, queues, None, use_kernel=use_kernel)
+    plan = FaultPlan(rules=(
+        FaultRule("shard_exchange", start_after=2, max_faults=1, shard=1, down_for=2),))
+    srv, rf, of = _serve_sharded(engine, queues, FaultInjector(plan), use_kernel=use_kernel)
+    _assert_same_serve(rb, ob, rf, of)
+    assert rf.failovers == [{"shard": 1, "down_for": 2, "call": 2}]
+    assert srv.sharded.down == {}  # rejoined before the serve ended
+    assert [p.get("failed_over", False) for p in rf.shards] == [False, True]
+    assert sum(p["feat_hits"] for p in rf.shards) == rf.feat_hits
+    assert sum(p["feat_lookups"] for p in rf.shards) == rf.feat_lookups
+    assert rf.availability == 1.0 and rf.summary()["failovers"] == rf.failovers
+
+
+def test_shard_exchange_is_charged_per_shard_and_names_its_victim(engine, dataset):
+    """Without a named shard every participating shard charges a call;
+    with one, only that shard does.  The fault carries the victim."""
+    queues = _queues(dataset, n=1, batches=2)
+    inj = FaultInjector(FaultPlan(rules=(FaultRule("shard_exchange", probability=0.0),)))
+    _serve_sharded(engine, queues, inj)
+    assert inj.counts()["shard_exchange"] == {"calls": 4, "faults": 0}  # 2 batches x 2 shards
+    inj = FaultInjector(FaultPlan(rules=(FaultRule("shard_exchange", shard=0,
+                                                   probability=0.0),)))
+    _serve_sharded(engine, queues, inj)
+    assert inj.counts()["shard_exchange"] == {"calls": 2, "faults": 0}
+    srv, rep, _ = _serve_sharded(engine, queues, FaultInjector(FaultPlan(rules=(
+        FaultRule("shard_exchange", start_after=1, max_faults=1),))))
+    assert rep.failovers == [{"shard": 1, "down_for": -1, "call": 1}]
+    assert srv.sharded.down == {1: -1}  # no down_for: down until the process ends
+
+
+def test_sharded_fault_knobs_without_faults_are_bit_identical(engine, dataset):
+    queues = _queues(dataset)
+    _, rb, ob = _serve_sharded(engine, queues, None, dedup=True, prefetch=True)
+    srv, rf, of = _serve_sharded(engine, queues, FaultInjector(FaultPlan()), dedup=True,
+                                 prefetch=True)
+    _assert_same_serve(rb, ob, rf, of)
+    assert rf.failovers == [] and srv.injector is not None and not srv.injector.enabled

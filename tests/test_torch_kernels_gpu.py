@@ -498,6 +498,110 @@ def test_kernel_gather_faults_reroute_off_kernel_one_on_the_card(cuda):
             np.testing.assert_array_equal(x, y)
 
 
+def test_a_refresh_on_the_card_leaves_the_previous_epoch_unchanged(cuda):
+    """A committed refresh that grows the hot table and inserts rows, and
+    one rolled back by a ``refresh_fill`` fault, write nothing into the
+    tensors the previous epoch's batches read; the rolled-back one leaves
+    the cache holding the same objects."""
+    import dataclasses
+
+    from repro_torch.core.faults import FaultInjector, FaultPlan, FaultRule, InjectedFault
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    caches, stats = eng.pipeline.caches, eng.pipeline.presample
+    alloc = caches.allocation
+    grow = dataclasses.replace(alloc, total_bytes=4 * alloc.total_bytes,
+                               feat_bytes=4 * alloc.feat_bytes)
+    counts = np.random.default_rng(0).integers(0, 9, ds.num_nodes)
+
+    def tensors():
+        return [caches.store.hot_table, caches.store.position_map, caches.dgraph.cache_ptr,
+                caches.dgraph.cache_row_index, caches.dgraph.cached_len, caches.dgraph.row_index]
+
+    old, objs = tensors(), (caches.dgraph, caches.store, caches.allocation, caches.epoch)
+    clones = [t.clone() for t in old]
+    inj = FaultInjector(FaultPlan(rules=(FaultRule("refresh_fill", max_faults=1),)))
+    with pytest.raises(InjectedFault):
+        caches.refresh(allocation=grow, node_counts=counts, edge_counts=stats.edge_counts,
+                       injector=inj)
+    assert (caches.dgraph, caches.store, caches.allocation, caches.epoch) == objs
+    assert all(a is b for a, b in zip(tensors(), old))
+    delta = caches.refresh(allocation=grow, node_counts=counts, edge_counts=stats.edge_counts,
+                           injector=inj)
+    torch.cuda.synchronize()
+    assert delta.feat.rows_inserted > 0 and caches.store.hot_table.shape[0] > old[0].shape[0]
+    assert caches.store.hot_table.is_cuda and caches.store.host_table.is_pinned()
+    for t, c in zip(old, clones):
+        assert torch.equal(t, c)
+
+
+@pytest.mark.parametrize("row_block", [None, tk.ROW_BLOCK])
+def test_co_resident_shards_gather_like_the_store_on_the_card(cuda, row_block):
+    """Four co-resident shards through #1 (or #2) give the unsharded
+    gather's bits; each shard's host table is a pinned view sharing the
+    global table's storage, read over UVA at its own offset."""
+    from repro_torch.graph.sampling import sample_blocks
+    from repro_torch.graph.shard import ShardedFeatureStore, make_shard_plan
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    store = eng.pipeline.caches.store
+    ss = ShardedFeatureStore.partition_store(store, make_shard_plan(store.num_nodes, 4))
+    base = store.host_table.untyped_storage().data_ptr()
+    for s, fs in enumerate(ss.shards):
+        lo, _ = ss.plan.bounds(s)
+        assert fs.host_table.is_pinned() and fs.host_table.untyped_storage().data_ptr() == base
+        assert fs.host_table.data_ptr() == base + lo * store.feat_dim * 4
+        assert fs.hot_table.is_cuda and fs.hot_table.data_ptr() != store.hot_table.data_ptr()
+    block = sample_blocks(eng.pipeline.caches.dgraph, eng._seeds(ds.test_idx[:128]), (4, 3),
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    ids = block.input_nodes
+    if row_block:
+        ids = torch.unique(ids)
+    kernel = tk.cached_gather_blocks if row_block else tk.cached_gather
+    want_f, want_h = store.gather(ids, use_kernel=True, row_block=row_block)
+    part = ss.partition(ids.cpu().numpy())
+    before = kernel.launches
+    feats, hit = ss.gather(part, use_kernel=True, row_block=row_block)
+    torch.cuda.synchronize()
+    assert kernel.launches - before == sum(b is not None for b in part.seg_ids) == 4
+    assert torch.equal(feats, want_f) and torch.equal(hit, want_h)
+    table_f, _ = ss.gather(part)  # the table route through the views agrees
+    assert torch.equal(table_f, want_f)
+
+
+@pytest.mark.parametrize("row_block", [None, tk.ROW_BLOCK])
+def test_a_failed_over_shard_is_gathered_by_the_kernel_on_the_card(cuda, row_block):
+    """A down shard's segment is read from its pinned host view by #1 (or
+    #2) on the card: one launch per non-empty segment, down shard
+    included, and the unsharded gather's bits and hit mask."""
+    from repro_torch.graph.sampling import sample_blocks
+    from repro_torch.graph.shard import ShardedFeatureStore, make_shard_plan
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    store = eng.pipeline.caches.store
+    ss = ShardedFeatureStore.partition_store(store, make_shard_plan(store.num_nodes, 4))
+    block = sample_blocks(eng.pipeline.caches.dgraph, eng._seeds(ds.test_idx[:128]), (4, 3),
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    ids = block.input_nodes
+    if row_block:
+        ids = torch.unique(ids)
+    kernel = tk.cached_gather_blocks if row_block else tk.cached_gather
+    want_f, want_h = store.gather(ids, use_kernel=True, row_block=row_block)
+    part = ss.partition(ids.cpu().numpy())
+    assert part.seg_ids[1] is not None
+    before = kernel.launches
+    feats, hit = ss.gather(part, use_kernel=True, row_block=row_block, down={1, 2})
+    torch.cuda.synchronize()
+    assert kernel.launches - before == sum(b is not None for b in part.seg_ids) == 4
+    assert feats.is_cuda and torch.equal(feats, want_f) and torch.equal(hit, want_h)
+
+
 def test_ducati_routes_agree_on_the_card(cuda):
     ds = load_dataset("ogbn-products", scale=0.002, seed=0)
     eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)

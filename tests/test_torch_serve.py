@@ -243,10 +243,11 @@ def test_server_rejects_bad_config(engine, dataset):
         ServeConfig(max_inflight=0)
     with pytest.raises(RuntimeError):
         MultiStreamServer(engine, config=_cfg(1)).run()
-    with pytest.raises(NotImplementedError, match="A-item 15"):
-        MultiStreamServer(engine, config=ServeConfig(engine=EngineConfig(refresh_mode="interval")))
-    with pytest.raises(NotImplementedError, match="A-item 17"):
-        MultiStreamServer(engine, config=ServeConfig(mesh=2))
+    with pytest.raises(ValueError):  # an interval mode needs an interval
+        MultiStreamServer(engine, config=ServeConfig(engine=EngineConfig(
+            refresh_mode="interval", refresh_interval=0)))
+    with pytest.raises(ValueError):
+        ServeConfig(mesh=-1)
     server = MultiStreamServer(engine, config=_cfg(1))
     with pytest.raises(ValueError, match="draws cover"):
         server.add_stream(_queues(dataset, n=1, batches=2)[0], draws=[[]])
@@ -305,11 +306,15 @@ def test_cli_serves(capsys, tmp_path, extra):
 
 
 def test_cli_refuses_what_is_not_ported():
+    """Refresh and the mesh are ported, so the CLI refuses only the values
+    the reference refuses: a negative mesh, an interval refresh without
+    an interval, a threshold outside (0, 1], an unknown mode."""
     base = ["--device", "cpu", "--dataset", "reddit", "--scale", "0.001"]
-    with pytest.raises(NotImplementedError, match="A-item 17"):
-        infer_gnn.main([*base, "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="A-item 15"):
-        infer_gnn.main([*base, "--refresh-mode", "interval"])
-    for flag, value in (("--refresh-interval", "4"), ("--refresh-miss-threshold", "0.5")):
-        with pytest.raises(NotImplementedError, match="A-item 15"):
-            infer_gnn.main([*base, flag, value])
+    with pytest.raises(ValueError, match="mesh"):
+        infer_gnn.main([*base, "--mesh", "-1"])
+    with pytest.raises(ValueError, match="interval"):
+        infer_gnn.main([*base, "--refresh-mode", "interval", "--refresh-interval", "0"])
+    with pytest.raises(ValueError, match="miss_threshold"):
+        infer_gnn.main([*base, "--refresh-mode", "events", "--refresh-miss-threshold", "1.5"])
+    with pytest.raises(SystemExit):
+        infer_gnn.main([*base, "--refresh-mode", "sometimes"])
