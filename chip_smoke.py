@@ -135,7 +135,28 @@ whose errors is caught:
    that epoch's hot set); a ``shard_exchange`` plan that fails shard 1
    over to its host table (read by #1, one launch per segment as when
    healthy) for 4 retired batches and rejoins, logits equal; the host
-   partition's per-batch time and the serve walls beside phase 12's.
+   partition's per-batch time and the serve walls beside phase 12's;
+15. LM serving: Gemma 2B at full size (18 layers, d 2048, MQA, head dim
+   256, vocab 256000, bf16, random weights from a seeded card generator)
+   through the serve CLI's ``main``: the Eq. 1 serving caches at 4 MB, a
+   batched prefill of 8 x 2048 synthetic tokens and 32 greedy decode
+   steps, every layer's attention on B5 (``wgmma`` prefill, ``split``
+   decode: the per-design counters, set to 0 just before, must read 18
+   and 576); prefill and decode times, tokens/s and
+   ``max_memory_allocated``.  Then an fp32 ``BatchedServer`` on Gemma 2B
+   (4 slots, 6 prompts of 100-500 tokens, 16 new tokens) whose tokens
+   must equal a sequential prefill + decode of each request (or part at
+   a near-tie, ``LM_TIE_TOL``), and prefill + decode against a longer
+   prefill; Gemma-2 27B at full width and 4 layers (2 x 6144 tokens past
+   the 4096 window, then 4 decode steps: local and global layers on B5);
+   a smoke config in fp32 against the CPU route at 1e-4.  The inputs of
+   the first layer of each kind (and the last decode step) are captured
+   and B5 is held to ``ref.py`` at each of those shapes, and timed at the
+   Gemma 2B prefill and decode and the Gemma-2 27B local prefill beside
+   ``_attend`` (its transposes included), ``ref.py``, the bound and the
+   library call (``scaled_dot_product_attention`` for Gemma 2B,
+   ``flex_attention`` for Gemma-2 27B).  The kernels' line counts these
+   runs' B5 launches in ``flash_attention``'s.
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -183,6 +204,24 @@ LAYERWISE_CUT = 0.1  # the scale of the table-route layer-wise check
 SEG_SHAPE = (180_224, 5, 100)  # first GraphSAGE layer: 1024*16*11 dst nodes, fanout 5, F 100
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
+# Phase 15, LM serving (src/repro/configs/gemma_2b.py at full size, bf16):
+# the serve CLI's requests x prompt tokens, decode steps and cache budget.
+LM_PREFILL = (8, 2048)
+LM_DECODE_STEPS = 32
+LM_CACHE_MB = 4
+# The fp32 BatchedServer on Gemma 2B: prompt lengths, slots, new tokens.
+LM_SERVER_PROMPTS = (100, 180, 260, 340, 420, 500)
+LM_SERVER_SLOTS = 4
+LM_SERVER_NEW = 16
+# Batched and sequential greedy tokens may part only at a near-tie: the
+# batched token's fp32 logit within this of the top one in the sequential
+# run (logits of scale ~1; the two decode routes differ by about 1e-5).
+LM_TIE_TOL = 1e-3
+# Gemma-2 27B at full width (src/repro/configs/gemma2_27b.py), depth cut to
+# two local/global repeats: batch x prompt (past the 4096 window) and decode.
+GEMMA2_LAYERS = 4
+GEMMA2_PREFILL = (2, 6144)
+GEMMA2_DECODE_STEPS = 4
 SEG_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # The bfloat16 kernel against ref.py computed in float32 from the same
@@ -191,6 +230,12 @@ ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # near 0.03, where the 5e-2 parity check above could not see a dropped
 # key tile.
 ATT_TOL_BF16_F32 = (2e-2, 2e-3)
+# Phase 15 holds B5 at the model's own activations to ATT_TOL only: there
+# attention is peaked, so a row's output rests on a few keys and rounding
+# p to bfloat16 alone moves it by about 2**-9 |v| (on an H100 the bf16
+# kernel read 2.19e-3 from ref.py in float32 at one of 33.3 M Gemma 2B
+# prefill outputs).  Its tight check is the float32 kernel on the
+# same inputs, upcast, against ref.py in float32 (3e-4), as in phase 6.
 # Kernel #3's all-hit time over #1's on the pinned frontier, at most: both
 # read only hot rows there, while reading the losing host row of every row
 # too would add the PCIe time of every row (the phase prints it).  The
@@ -621,10 +666,11 @@ def flex_library(sq: int, sk: int, causal: bool, window: int | None, softcap: fl
                                     enable_gqa=True)
 
 
-def check_attention(got, q, k, v, kw) -> float:
+def check_attention(got, q, k, v, kw, against_f32: bool = True) -> float:
     """Hold one kernel output against ref.py on the same inputs in their
-    dtype, and a bfloat16 output also against ref.py in float32; returns
-    the max abs error against the same-dtype ref.py."""
+    dtype, and a bfloat16 output also against ref.py in float32 (unless
+    ``against_f32`` is False); returns the max abs error against the
+    same-dtype ref.py."""
     import torch
 
     from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
@@ -634,7 +680,7 @@ def check_attention(got, q, k, v, kw) -> float:
     tol = ATT_TOL[str(q.dtype).split(".")[1]]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     err = float((got.float() - want.float()).abs().max())
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and against_f32:
         del want
         want = attention_ref(q.float(), expand_kv(k.float(), hq), expand_kv(v.float(), hq), **kw)
         rtol, atol = ATT_TOL_BF16_F32
@@ -1973,6 +2019,441 @@ def sharded_phase(ds, eng, serving) -> dict:
     return out
 
 
+class AttendRecorder:
+    """Keeps the inputs of the LM's ``_attend`` calls while installed: the
+    first prefill call of each window (the first layer of each kind) and
+    the last decode call at each key count (decode attends over the kept
+    ring slots with no window).  Calls go on to the routed ``_attend``
+    unchanged."""
+
+    def __init__(self):
+        from repro_torch.models.lm import attention
+
+        self.module, self.original, self.calls = attention, attention._attend, {}
+
+    def __enter__(self):
+        def record(q, k, v, *, causal, window, softcap):
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            if q.shape[1] > 1:
+                self.calls.setdefault(("prefill", window), (q, k, v, kw))
+            else:
+                self.calls[("decode", k.shape[1])] = (q, k, v, kw)
+            return self.original(q, k, v, **kw)
+
+        self.module._attend = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module._attend = self.original
+
+
+def b5_counted(fn):
+    """``fn()`` with B5's counters set to 0 just before and read just
+    after (synchronized): (result, launches by design)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    fa.flash_attention.launches = 0
+    fa.flash_attention.design_launches = dict.fromkeys(fa.DESIGNS, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fa.flash_attention.design_launches)
+
+
+def lm_shape_row(label, call, peaks, library, time_it=True) -> dict:
+    """One captured ``_attend`` call at its real shape: B5 (on ``[B, H, S,
+    D]`` copies) held to ref.py in the inputs' dtype (ATT_TOL), and B5's
+    float32 design on the upcast inputs to ref.py in float32 (3e-4); if
+    ``time_it``, B5, ``_attend`` itself (the transposes included), ref.py
+    and ``library`` timed, with the bound (operations for prefill, bytes
+    for decode)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref, expand_kv
+
+    q_bshd, k_bshd, v_bshd, kw = call
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q_bshd, k_bshd, v_bshd))
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    design = fa.plan(q.dtype, b, hq, k.shape[1], sq, sk, d, torch.cuda.get_device_properties(
+        0).multi_processor_count).design
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    got = designed_call(fa, design, q, k, v, kw)
+    err = check_attention(got, q, k, v, kw, against_f32=False)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    design32 = fa.plan(q32.dtype, b, hq, k.shape[1], sq, sk, d, sm_count).design
+    err32 = check_attention(designed_call(fa, design32, q32, k32, v32, kw), q32, k32, v32, kw)
+    want32 = attention_ref(q32, expand_kv(k32, hq), expand_kv(v32, hq), **kw)
+    err_vs_f32 = float((got.float() - want32).abs().max())
+    del q32, k32, v32, want32, got
+    row = dict(shape=[b, hq, k.shape[1], sq, sk, d], dtype=str(q.dtype).split(".")[1],
+               design=design, f32_design=design32, **kw, max_abs_err=err, f32_max_abs_err=err32,
+               max_abs_err_vs_f32_ref=err_vs_f32)
+    if time_it:
+        bf16_peak, hbm = peaks
+        pairs = b * hq * kept_pairs(sq, sk, kw["causal"], kw["window"])
+        flops = 4 * d * pairs
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        reps = 5 if sq > 1 else 20
+        from repro_torch.models.lm.attention import _attend
+
+        row.update(
+            flops=flops, bytes=nbytes, bound_ms=1e3 * max(flops / bf16_peak, nbytes / hbm),
+            bound_by="operations" if flops / bf16_peak > nbytes / hbm else "bytes",
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=reps),
+            attend_ms=cuda_ms(lambda: _attend(q_bshd, k_bshd, v_bshd, **kw), reps=reps),
+            graph_ms=graph_ms(lambda: fa.flash_attention(q, k, v, **kw), reps=20),
+            plain_ms=cuda_ms(lambda: attention_ref(q, expand_kv(k, hq), expand_kv(v, hq), **kw),
+                             reps=2),
+        )
+        lib_fn = library(q, k, v, kw)
+        row["library_max_abs_err"] = check_attention(lib_fn(), q, k, v, kw, against_f32=False)
+        row["library_ms"] = cuda_ms(lib_fn, reps=reps)
+        log(f"  {label} {row['shape']} {row['dtype']} causal={kw['causal']} window "
+            f"{kw['window']} softcap {kw['softcap']} ({design}): kernel {row['ms']:.4f} ms (in a "
+            f"CUDA graph {row['graph_ms']:.4f}), _attend with its transposes "
+            f"{row['attend_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), ref.py {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.4f} ms; max abs err {err:.3g} (library "
+            f"{row['library_max_abs_err']:.3g}); f32 ({design32}) {err32:.3g}; bf16 kernel "
+            f"against ref.py in f32 {err_vs_f32:.3g}")
+    else:
+        log(f"  {label} {row['shape']} {row['dtype']} causal={kw['causal']} window "
+            f"{kw['window']} softcap {kw['softcap']} ({design}): within {ATT_TOL['bfloat16']} of "
+            f"ref.py, max abs err {err:.3g}; f32 ({design32}) within {ATT_TOL['float32']}, "
+            f"{err32:.3g}; bf16 kernel against ref.py in f32 {err_vs_f32:.3g}")
+    return row
+
+
+def sdpa_library(q, k, v, kw):
+    """``scaled_dot_product_attention`` for Gemma 2B (no softcap, no window)."""
+    import torch.nn.functional as F
+
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=kw["causal"],
+                                                  enable_gqa=True)
+
+
+def flex_library_for(q, k, v, kw):
+    fn = flex_library(q.shape[2], k.shape[2], kw["causal"], kw["window"], kw["softcap"])
+    return lambda: fn(q, k, v)
+
+
+def greedy_check(label, got: list, want: list, want_logits: list) -> dict:
+    """Tokens of one request, batched against sequential.  At the first
+    differing step the sequential run's logits must hold a near-tie: the
+    batched token's logit within LM_TIE_TOL of the top one; later steps
+    have other contexts and are not compared."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            gap = float(want_logits[i].max() - want_logits[i][g])
+            if gap > LM_TIE_TOL:
+                raise AssertionError(f"{label}: step {i} gave token {g} against {w}, logit gap "
+                                     f"{gap:.3g} > {LM_TIE_TOL}")
+            return {"first_difference": i, "logit_gap": gap}
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} tokens against {len(want)}")
+    return {"first_difference": None}
+
+
+def lm_breakdown(cfg, n_req: int, prompt_len: int) -> dict:
+    """Where Gemma 2B's serving time goes, warm: the model built again as
+    the serve CLI builds it, one prefill and LM_DECODE_STEPS decode steps
+    after a warmup of each (host clock, synchronized), then one prefill and
+    4 decode steps under ``torch.profiler``: device time by kernel family
+    (B5, matrix products, the rest) and the device's busy share of the
+    warm wall time.  Device numbers are None when the profiler records no
+    device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.lm import model as lm
+
+    params = lm.init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.as_tensor(TokenStream(vocab=cfg.vocab, seed=1).sample(
+        np.random.default_rng(2), n_req, prompt_len), device="cuda")
+    cache_size = prompt_len + LM_DECODE_STEPS
+
+    def run(steps: int) -> tuple[float, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kv = lm.prefill(params, {"tokens": tokens}, cfg, cache_size=cache_size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(steps):
+            logits, kv = lm.decode_step(params, torch.argmax(logits, -1)[:, None], kv,
+                                        prompt_len + i, cfg)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    run(2)  # warmup
+    prefill_s, decode_s = run(LM_DECODE_STEPS)
+    out = dict(prefill_s=prefill_s, decode_s=decode_s,
+               decode_ms_per_step=1e3 * decode_s / LM_DECODE_STEPS,
+               prefill_tok_s=n_req * prompt_len / prefill_s,
+               decode_tok_s=n_req * LM_DECODE_STEPS / decode_s)
+    logits, kv = lm.prefill(params, {"tokens": tokens}, cfg, cache_size=cache_size)
+    nxt = torch.argmax(logits, -1)[:, None]
+    torch.cuda.synchronize()
+    work = {"prefill": (lambda: lm.prefill(params, {"tokens": tokens}, cfg, cache_size=cache_size),
+                        prefill_s),
+            "decode": (lambda: [lm.decode_step(params, nxt, kv, prompt_len + i, cfg)
+                                for i in range(4)], 4 * decode_s / LM_DECODE_STEPS)}
+    notes = []
+    for label, (fn, wall) in work.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        families = {"b5": 0.0, "matmul": 0.0, "other": 0.0}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(evt, "device_time_total", None)
+            us = evt.cuda_time_total if us is None else us
+            name = evt.key.lower()
+            family = ("b5" if any(k in name for k in ("wgmma_kernel", "split_kernel",
+                                                      "combine_kernel", "fma_kernel"))
+                      else "matmul" if any(k in name for k in ("gemm", "xmma", "nvjet",
+                                                               "cutlass"))
+                      else "other")
+            families[family] += us / 1e6
+        device_s = sum(families.values())
+        # Busy share: the profiled work's device time over the warm wall of
+        # the same work (host clock, synchronized, profiler off).
+        out[label + "_device_s"] = families if device_s > 0 else None
+        out[label + "_busy_share"] = device_s / wall if device_s > 0 else None
+        notes.append(f"{label}{' (4 steps)' if label == 'decode' else ''} " + (
+            ", ".join(f"{k} {v:.4f}" for k, v in families.items())
+            + f" s on the device, busy {100 * device_s / wall:.1f}% of its warm wall"
+            if device_s > 0 else "no device time recorded"))
+    del params, tokens, logits, kv
+    torch.cuda.empty_cache()
+    log(f"  warm, built again: prefill {prefill_s:.4f} s ({out['prefill_tok_s']:.0f} tok/s), "
+        f"decode {out['decode_ms_per_step']:.3f} ms per step ({out['decode_tok_s']:.1f} tok/s); "
+        f"profiled: {'; '.join(notes)}")
+    return out
+
+
+def lm_phase(peaks) -> dict:
+    """LM serving on the card: Gemma 2B at full size through the serve
+    CLI's ``main``, an fp32 BatchedServer held to sequential decoding,
+    Gemma-2 27B at full width and 4 layers, and B5 held to ref.py at every
+    new shape the path gave it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import model as lm
+    from repro_torch.runtime.serve_engine import BatchedServer
+    from repro_torch.utils.tree import tree_map
+
+    n_req, prompt_len = LM_PREFILL
+    phase(f"15. LM serving: Gemma 2B full size, bf16, {n_req} x {prompt_len} prefill and "
+          f"{LM_DECODE_STEPS} decode steps; fp32 BatchedServer; Gemma-2 27B full width, "
+          f"{GEMMA2_LAYERS} layers")
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+
+    # (a) The serve CLI's main at full size: init, Eq. 1 caches, prefill, decode.
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = ["--arch", "gemma-2b", "--requests", str(n_req), "--prompt-len", str(prompt_len),
+            "--gen-len", str(LM_DECODE_STEPS + 1), "--cache-mb", str(LM_CACHE_MB)]
+    t0 = time.perf_counter()
+    with AttendRecorder() as rec:
+        rep, counts = b5_counted(lambda: serve.main(args))
+    wall = time.perf_counter() - t0
+    cfg = get_config("gemma-2b")
+    want = {**dict.fromkeys(counts, 0), "wgmma": cfg.n_layers,
+            "split": cfg.n_layers * LM_DECODE_STEPS}
+    if counts != want:
+        raise AssertionError(f"Gemma 2B serve: B5 launches by design {counts}, want {want}")
+    toks = rep["tokens"]
+    if toks.shape != (n_req, LM_DECODE_STEPS + 1) or not (0 <= toks).all() or not (
+            toks < cfg.vocab).all():
+        raise AssertionError(f"Gemma 2B serve gave tokens {toks.shape}, range "
+                             f"{toks.min()}..{toks.max()}")
+    peak = torch.cuda.max_memory_allocated()
+    out["gemma_2b"] = dict(
+        {k: v for k, v in rep.items() if k != "tokens"}, wall_s=wall, launches=counts,
+        prefill_tok_s=n_req * prompt_len / rep["prefill_s"],
+        decode_ms_per_step=1e3 * rep["decode_s"] / LM_DECODE_STEPS,
+        max_memory_allocated=peak, memory_above_base=peak - base)
+    out["launches"]["gemma_2b"] = counts
+    g = out["gemma_2b"]
+    log(f"  Gemma 2B ({wall:.1f} s with init and caches): prefill {rep['prefill_s']:.4f} s "
+        f"({g['prefill_tok_s']:.0f} tok/s), decode {g['decode_ms_per_step']:.3f} ms per step "
+        f"({rep['decode_tok_s']:.1f} tok/s), embed cache {rep['embed_rows']} rows, hit "
+        f"{rep['prompt_hit_rate']:.4f} / gen {rep['gen_hit_rate']:.4f}; max_memory_allocated "
+        f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the phase's start); B5 {counts}")
+    captured = dict(rec.calls)
+    out["gemma_2b"]["warm"] = lm_breakdown(cfg, n_req, prompt_len)
+    marks = {"gemma_2b": time.perf_counter() - t_phase}
+
+    # (b) fp32 BatchedServer on Gemma 2B at full size against sequential decoding.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = lm.init_params(cfg32, generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    stream = TokenStream(vocab=cfg32.vocab, seed=3)
+    rng = np.random.default_rng(4)
+    prompts = [stream.sample(rng, 1, n)[0] for n in LM_SERVER_PROMPTS]
+    max_len = max(LM_SERVER_PROMPTS) + LM_SERVER_NEW + 4
+    t0 = time.perf_counter()
+
+    def serve_batched():
+        server = BatchedServer(cfg32, params, slots=LM_SERVER_SLOTS, max_len=max_len)
+        for i, p in enumerate(prompts):
+            server.submit(p, LM_SERVER_NEW, req_id=i)
+        return server.run()
+
+    results, counts = b5_counted(serve_batched)
+    batched_s = time.perf_counter() - t0
+    if counts != {**dict.fromkeys(counts, 0), "fma": cfg.n_layers * len(prompts)}:
+        raise AssertionError(f"fp32 server: B5 launches {counts} (one fma prefill per layer per "
+                             "admission; the per-slot decode is plain torch)")
+    out["launches"]["fp32_server"] = counts
+
+    def sequential():
+        runs = []
+        for p in prompts:
+            logits, caches = lm.prefill(params, {"tokens": torch.as_tensor(p[None], device="cuda")},
+                                        cfg32, cache_size=max_len)
+            steps = [logits[0, : cfg.vocab]]
+            for i in range(LM_SERVER_NEW - 1):
+                nxt = torch.argmax(steps[-1]).view(1, 1)
+                logits, caches = lm.decode_step(params, nxt, caches, len(p) + i, cfg32)
+                steps.append(logits[0, : cfg.vocab])
+            runs.append(steps)
+        return runs
+
+    t0 = time.perf_counter()
+    runs, counts = b5_counted(sequential)
+    sequential_s = time.perf_counter() - t0
+    want = {**dict.fromkeys(counts, 0), "fma": cfg.n_layers * len(prompts),
+            "split": cfg.n_layers * (LM_SERVER_NEW - 1) * len(prompts)}
+    if counts != want:
+        raise AssertionError(f"fp32 sequential: B5 launches {counts}, want {want}")
+    out["launches"]["fp32_sequential"] = counts
+    checks = []
+    for req, steps in zip(results, runs):
+        want_toks = [int(torch.argmax(s)) for s in steps]
+        checks.append(greedy_check(f"request {req.req_id}", req.generated, want_toks, steps))
+    # The reference's invariant at full size: prefill then decode equals a
+    # longer prefill (fp32; fma prefill against split decode).
+    p = torch.as_tensor(prompts[2][None], device="cuda")
+    longer, _ = lm.prefill(params, {"tokens": p}, cfg32, cache_size=max_len)
+    _, caches = lm.prefill(params, {"tokens": p[:, :-1]}, cfg32, cache_size=max_len)
+    stepped, _ = lm.decode_step(params, p[:, -1:], caches, p.shape[1] - 1, cfg32)
+    invariant_err = float((stepped - longer).abs().max())
+    torch.testing.assert_close(stepped, longer, atol=2e-4, rtol=2e-4)
+    del params, caches, longer, stepped, runs
+    out["fp32_server"] = dict(prompts=list(LM_SERVER_PROMPTS), slots=LM_SERVER_SLOTS,
+                              new=LM_SERVER_NEW, batched_s=batched_s, sequential_s=sequential_s,
+                              checks=checks, invariant_max_abs_err=invariant_err)
+    marks["fp32_server"] = time.perf_counter() - t_phase
+    differing = [c for c in checks if c["first_difference"] is not None]
+    log(f"  fp32 BatchedServer, {LM_SERVER_SLOTS} slots, prompts {list(LM_SERVER_PROMPTS)}, "
+        f"{LM_SERVER_NEW} new tokens: {batched_s:.2f} s; sequential prefill + decode of each "
+        f"{sequential_s:.2f} s; {len(checks) - len(differing)} of {len(checks)} requests equal"
+        + (f", near-ties at {differing}" if differing else "")
+        + f"; prefill + decode against a longer prefill: max abs err {invariant_err:.3g}")
+
+    # (c) Gemma-2 27B at full width, GEMMA2_LAYERS layers: local and global.
+    cfg27 = dataclasses.replace(get_config("gemma2-27b"), n_layers=GEMMA2_LAYERS)
+    params = lm.init_params(cfg27, generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    b27, s27 = GEMMA2_PREFILL
+    tokens = torch.as_tensor(TokenStream(vocab=cfg27.vocab, seed=5).sample(
+        np.random.default_rng(6), b27, s27), device="cuda")
+
+    def run27():
+        logits, caches = lm.prefill(params, {"tokens": tokens}, cfg27,
+                                    cache_size=s27 + GEMMA2_DECODE_STEPS)
+        firsts = [logits]
+        for i in range(GEMMA2_DECODE_STEPS):
+            logits, caches = lm.decode_step(params, torch.argmax(logits, -1)[:, None], caches,
+                                            s27 + i, cfg27)
+            firsts.append(logits)
+        return torch.stack(firsts)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with AttendRecorder() as rec27:
+        logits27, counts = b5_counted(run27)
+    wall27 = time.perf_counter() - t0
+    want = {**dict.fromkeys(counts, 0), "wgmma": GEMMA2_LAYERS,
+            "split": GEMMA2_LAYERS * GEMMA2_DECODE_STEPS}
+    if counts != want:
+        raise AssertionError(f"Gemma-2 27B: B5 launches {counts}, want {want}")
+    if logits27.shape != (GEMMA2_DECODE_STEPS + 1, b27, cfg27.vocab_padded) or not bool(
+            torch.isfinite(logits27).all()) or float(logits27.abs().max()) > cfg27.final_softcap:
+        raise AssertionError(f"Gemma-2 27B logits {tuple(logits27.shape)}, finite "
+                             f"{bool(torch.isfinite(logits27).all())}")
+    out["launches"]["gemma2_27b"] = counts
+    out["gemma2_27b"] = dict(layers=GEMMA2_LAYERS, batch=b27, prompt=s27,
+                             decode_steps=GEMMA2_DECODE_STEPS, wall_s=wall27, launches=counts)
+    log(f"  Gemma-2 27B, {GEMMA2_LAYERS} layers: prefill {b27} x {s27} + {GEMMA2_DECODE_STEPS} "
+        f"decode steps in {wall27:.3f} s; logits finite, within the final softcap; B5 {counts}")
+    del params, logits27
+    marks["gemma2_27b"] = time.perf_counter() - t_phase
+
+    # (d) A small input against the CPU route: fp32 smoke config, both rings wrapped.
+    small = dataclasses.replace(get_smoke("gemma2-27b"), dtype="float32")
+    cpu_params = lm.init_params(small, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    card_params = tree_map(lambda a: a.cuda(), cpu_params)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, small.vocab, (2, 20)))
+    small_err = 0.0
+    want_l, want_c = lm.prefill(cpu_params, {"tokens": toks}, small, cache_size=32)
+    got_l, got_c = lm.prefill(card_params, {"tokens": toks.cuda()}, small, cache_size=32)
+    for step in range(8):
+        small_err = max(small_err, float((got_l.cpu() - want_l).abs().max()))
+        torch.testing.assert_close(got_l.cpu(), want_l, atol=1e-4, rtol=1e-4)
+        nxt = torch.argmax(want_l[:, : small.vocab], -1)[:, None]
+        if not torch.equal(torch.argmax(got_l[:, : small.vocab], -1)[:, None].cpu(), nxt):
+            raise AssertionError(f"smoke fp32: greedy tokens differ from the CPU route at {step}")
+        want_l, want_c = lm.decode_step(cpu_params, nxt, want_c, 20 + step, small)
+        got_l, got_c = lm.decode_step(card_params, nxt.cuda(), got_c, 20 + step, small)
+    out["small_max_abs_err"] = small_err
+    marks["small"] = time.perf_counter() - t_phase
+    log(f"  gemma2-27b smoke, fp32, prompt 20 past its window-16 ring + 8 decode steps: card "
+        f"within 1e-4 of the CPU route (max abs err {small_err:.3g}), tokens equal")
+
+    # (e) B5 at every new shape of the path, against ref.py; timed at the
+    # Gemma 2B prefill and decode and the Gemma-2 27B local prefill.
+    torch.cuda.empty_cache()
+    shapes = {}
+    plan = [("gemma_2b_prefill", captured[("prefill", None)], sdpa_library, True),
+            ("gemma_2b_decode_first", captured[("decode", prompt_len + 1)], None, False),
+            ("gemma_2b_decode", captured[("decode", prompt_len + LM_DECODE_STEPS)],
+             sdpa_library, True),
+            ("gemma2_27b_local_prefill", rec27.calls[("prefill", cfg27.window)],
+             flex_library_for, True),
+            ("gemma2_27b_global_prefill", rec27.calls[("prefill", None)], None, False),
+            # The local ring holds the window's keys; the global cache s27 + steps.
+            ("gemma2_27b_local_decode", rec27.calls[("decode", cfg27.window)], None, False),
+            ("gemma2_27b_global_decode", rec27.calls[("decode", s27 + GEMMA2_DECODE_STEPS)],
+             None, False)]
+    del captured, rec, rec27
+    for label, call, library, time_it in plan:
+        shapes[label] = lm_shape_row(label, call, peaks, library, time_it)
+        torch.cuda.empty_cache()
+    del plan
+    out["shapes"] = shapes
+    out["launches_total"] = sum(sum(c.values()) for c in out["launches"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_at"] = marks
+    log(f"  phase 15: {out['seconds']:.1f} s (at the end of each step: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())}); B5 launched "
+        f"{out['launches_total']} times on the LM paths ({out['launches']})")
+    return out
+
+
 def cli_phase() -> dict:
     from repro_torch.core.faults import FaultPlan, FaultRule
 
@@ -2084,6 +2565,7 @@ def main() -> int:
     refresh = refresh_phase(ds, eng)
     sharded = sharded_phase(ds, eng, serving)
     del serving["outputs"]
+    lm = lm_phase(peaks)
     # Launches on the paths: the nine routes, the baselines', the
     # layer-wise, the serving, refresh and sharded runs, each counted from
     # 0 just before it.
@@ -2119,8 +2601,10 @@ def main() -> int:
          "library_ms": seg_row["library_ms"]},
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
+        # launches: the ops path's and phase 15's LM serving runs.
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
-         "replaces": REPLACES["flash_attention"], "launches": ops_launches["flash_attention"],
+         "replaces": REPLACES["flash_attention"],
+         "launches": ops_launches["flash_attention"] + lm["launches_total"],
          "max_abs_err": att_err, "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
          "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
          "library_ms": prefill["library_ms"]},
@@ -2131,6 +2615,7 @@ def main() -> int:
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
+        "lm": lm,
         "cli": cli, "path_launches": path_launches,
         "serve_launches": serve_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,

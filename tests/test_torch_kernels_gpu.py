@@ -15,10 +15,13 @@ and a tensor-core output also against ``ref.py`` in float32 on the same
 inputs (rtol 2e-2, atol 2e-3).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke
 from repro_torch.core.config import EngineConfig
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.kernels.cached_gather import kernel as tk
@@ -29,7 +32,11 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_sp
                                                       expand_kv)
 from repro_torch.kernels.seg_agg import kernel as sa
 from repro_torch.kernels.seg_agg.ref import seg_agg_ref
+from repro_torch.models.lm import attention as lm_attn
+from repro_torch.models.lm import model as lm_model
+from repro_torch.runtime import serve_engine as lm_serve_engine
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+from repro_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -812,3 +819,127 @@ def test_flash_attention_beyond_65535_heads(cuda, dtype, sq, sk, design):
     """B * Hq = 70,000: every grid is one-dimensional, so no 65535 limit."""
     q, k, v = _qkv(cuda, 2, 35_000, 35_000, sq, sk, 32, dtype, seed=7)
     _check_attention(q, k, v, design=design, causal=False)
+
+
+# ------------------------------------------------------------ LM serving
+
+
+def _lm_params(cfg, device, seed=0):
+    params = lm_model.init_params(cfg, generator=torch.Generator().manual_seed(seed), device="cpu")
+    return params, tree_map(lambda a: a.to(device), params)
+
+
+def _b5_counts(fn):
+    """``fn()`` with B5's per-design counters set to 0 just before; returns
+    (its result, the launches by design)."""
+    fa.flash_attention.design_launches = dict.fromkeys(fa.DESIGNS, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(fa.flash_attention.design_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (40, 50.0)])
+def test_lm_attend_launches_b5_and_matches_the_plain_route(cuda, dtype, window, softcap):
+    """``_attend`` on CUDA tensors is one B5 launch (prefill: ``wgmma`` in
+    bf16, ``fma`` in f32), held to its CPU route (the plain fp32 version)
+    at B5's tolerance; ``[B, S, H, D]`` in and out, MQA 8:1 at D = 256."""
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randn((2, 150, 8, 256), generator=gen).to(dtype)
+    k, v = (torch.randn((2, 150, 1, 256), generator=gen).to(dtype) for _ in range(2))
+    want = lm_attn._attend(q, k, v, causal=True, window=window, softcap=softcap)
+    got, counts = _b5_counts(lambda: lm_attn._attend(q.to(cuda), k.to(cuda), v.to(cuda),
+                                                     causal=True, window=window, softcap=softcap))
+    design = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert counts == {**dict.fromkeys(fa.DESIGNS, 0), design: 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=ATT_TOL[dtype],
+                               atol=ATT_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 5])
+def test_lm_decode_launches_the_split_kernel_unwrapped_and_wrapped(cuda, dtype, window):
+    """``gqa_decode`` with one host ``cache_len`` launches B5's ``split``
+    once, before and after the ring wraps, and matches the CPU route (the
+    masked reference semantics) at B5's tolerance; a per-slot vector takes
+    the plain masked route and launches nothing."""
+    cfg = dataclasses.replace(get_smoke("gemma2-27b"), dtype="float32")
+    gen = torch.Generator().manual_seed(12)
+    params = lm_attn.init_gqa_params(gen, cfg, dtype, device="cpu")
+    shape = (3, 8, cfg.n_kv_heads, cfg.head_dim)
+    cache = {key: torch.randn(shape, generator=gen).to(dtype) for key in ("k", "v")}
+    card_params = tree_map(lambda a: a.to(cuda), params)
+    card_cache = tree_map(lambda a: a.to(cuda), cache)
+    tol = dict(rtol=ATT_TOL[dtype], atol=ATT_TOL[dtype])
+    for cl in (0, 3, 7, 8, 13, 30):
+        x = torch.randn((3, 1, cfg.d_model), generator=gen).to(dtype)
+        want, want_cache = lm_attn.gqa_decode(params, x, cache, cl, cfg, window=window)
+        (got, got_cache), counts = _b5_counts(lambda: lm_attn.gqa_decode(
+            card_params, x.to(cuda), card_cache, cl, cfg, window=window))
+        assert counts == {**dict.fromkeys(fa.DESIGNS, 0), "split": 1}, (cl, counts)
+        torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+        torch.testing.assert_close(got_cache["k"].cpu().float(), want_cache["k"].float(), **tol)
+        lens = torch.tensor([cl, cl + 2, 1], device=cuda)
+        _, counts = _b5_counts(lambda: lm_attn.gqa_decode(
+            card_params, x.to(cuda), card_cache, lens, cfg, window=window))
+        assert not any(counts.values())
+
+
+@pytest.mark.parametrize("arch,long_mode", [("gemma-2b", False), ("gemma2-27b", False),
+                                            ("granite-3-8b", True)])
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(cuda, arch, long_mode):
+    """float32 smoke configs: logits at 1e-4 of the CPU route and greedy
+    tokens equal, prefill then decode past the rings' wrap (Gemma-2's local
+    window 16, Granite's long-context window cut to 8); one B5 launch per
+    layer per call (``fma`` prefill, ``split`` decode)."""
+    overrides = dict(long_context_window=8) if long_mode else {}
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32", **overrides)
+    cpu_params, card_params = _lm_params(cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(13).integers(0, cfg.vocab, (2, 20)))
+    kw = dict(cache_size=8 if long_mode else 32, long_mode=long_mode)
+    want, want_c = lm_model.prefill(cpu_params, {"tokens": toks}, cfg, **kw)
+    (got, got_c), counts = _b5_counts(
+        lambda: lm_model.prefill(card_params, {"tokens": toks.to(cuda)}, cfg, **kw))
+    assert counts == {**dict.fromkeys(fa.DESIGNS, 0), "fma": cfg.n_layers}
+    for step in range(12):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        nxt = torch.argmax(want[:, : cfg.vocab], -1)[:, None]
+        assert torch.equal(torch.argmax(got[:, : cfg.vocab], -1)[:, None].cpu(), nxt)
+        want, want_c = lm_model.decode_step(cpu_params, nxt, want_c, 20 + step, cfg,
+                                            long_mode=long_mode)
+        (got, got_c), counts = _b5_counts(lambda: lm_model.decode_step(
+            card_params, nxt.to(cuda), got_c, 20 + step, cfg, long_mode=long_mode))
+        assert counts == {**dict.fromkeys(fa.DESIGNS, 0), "split": cfg.n_layers}
+
+
+def test_lm_prefill_then_decode_equals_a_longer_prefill_on_the_card(cuda):
+    cfg = dataclasses.replace(get_smoke("gemma2-27b"), dtype="float32")
+    _, params = _lm_params(cfg, cuda, seed=1)
+    s = 17
+    toks = torch.from_numpy(np.random.default_rng(14).integers(0, cfg.vocab, (2, s + 1))).to(cuda)
+    lf, _ = lm_model.prefill(params, {"tokens": toks}, cfg, cache_size=s + 8)
+    _, caches = lm_model.prefill(params, {"tokens": toks[:, :s]}, cfg, cache_size=s + 8)
+    ld, _ = lm_model.decode_step(params, toks[:, s : s + 1], caches, s, cfg)
+    torch.testing.assert_close(ld, lf, atol=2e-4, rtol=2e-4)
+
+
+def test_lm_batched_server_on_the_card_matches_sequential_decoding(cuda):
+    """Per-slot decode (plain torch) against the B5 route of a sequential
+    prefill + decode of each request, float32, greedy."""
+    cfg = dataclasses.replace(get_smoke("gemma2-27b"), dtype="float32")
+    _, params = _lm_params(cfg, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 9, 13, 7, 11, 21)]
+    server = lm_serve_engine.BatchedServer(cfg, params, slots=2, max_len=40)
+    for i, p in enumerate(prompts):
+        server.submit(p, 6, req_id=i)
+    for req, prompt in zip(server.run(), prompts):
+        logits, caches = lm_model.prefill(params, {"tokens": torch.from_numpy(prompt[None]).to(cuda)},
+                                          cfg, cache_size=40)
+        toks = [int(torch.argmax(logits[0, : cfg.vocab]))]
+        for i in range(5):
+            logits, caches = lm_model.decode_step(params, torch.tensor([[toks[-1]]], device=cuda),
+                                                  caches, len(prompt) + i, cfg)
+            toks.append(int(torch.argmax(logits[0, : cfg.vocab])))
+        assert req.generated == toks, req.req_id
