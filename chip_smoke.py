@@ -156,7 +156,22 @@ whose errors is caught:
    ``_attend`` (its transposes included), ``ref.py``, the bound and the
    library call (``scaled_dot_product_attention`` for Gemma 2B,
    ``flex_attention`` for Gemma-2 27B).  The kernels' line counts these
-   runs' B5 launches in ``flash_attention``'s.
+   runs' B5 launches in ``flash_attention``'s;
+16. LM serving, MoE and state-space archs, at full width through the
+   serve CLI's ``main`` (bf16, random weights): Jamba v0.1 cut to one
+   pattern period of 8 layers (7 Mamba, 1 attention, 4 MoE; 13.0 B
+   parameters), 4 x 1024 tokens and 8 decode steps, its attention on B5
+   (the counters must read 1 ``wgmma`` and 8 ``split``) and Eq. 1's
+   expert share holding at least one expert; RWKV6-3B at full size, 4 x
+   512 on the scan and on the chunked route, the chunked prefill held to
+   the scan in fp32 at full size (``RWKV_CHUNK_TOL``); DeepSeek-V2 cut to
+   2 layers, 2 x 512, its MoE dispatch run twice on one input for the
+   same bits; each with prefill s, decode ms per step, decode's device
+   busy share (``torch.profiler``) and ``max_memory_allocated``; fp32
+   ``BatchedServer``s for RWKV6-3B (full size) and Jamba (one period at
+   the smoke config's width) whose tokens must equal sequential
+   decoding; and B5 held to ``ref.py`` and timed beside SDPA at Jamba's
+   prefill and decode shapes.  Its B5 launches join the kernels' line.
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -222,6 +237,31 @@ LM_TIE_TOL = 1e-3
 GEMMA2_LAYERS = 4
 GEMMA2_PREFILL = (2, 6144)
 GEMMA2_DECODE_STEPS = 4
+# Phase 16, LM serving for the MoE and state-space archs at full width
+# (src/repro/configs/jamba_v01_52b.py, rwkv6_3b.py, deepseek_v2_236b.py),
+# depth cut to one card: Jamba to one pattern period, DeepSeek-V2 to 2 layers.
+JAMBA_LAYERS = 8
+JAMBA_PREFILL = (4, 1024)
+# Jamba's budget: Eq. 1's expert share (about half) must hold at least one
+# expert at the reference's accounting (88 MB each at 8 layers), and its
+# embedding share less than the 1.07 GB fp32 table.
+JAMBA_CACHE_MB = 1000
+RWKV_PREFILL = (4, 512)
+DEEPSEEK_LAYERS = 2
+DEEPSEEK_PREFILL = (2, 512)
+DEEPSEEK_DECODE_STEPS = 4
+SSM_DECODE_STEPS = 8
+SSM_CACHE_MB = 64
+# The fp32 BatchedServers: prompt lengths, slots, new tokens; Jamba's
+# width cut (d_model, heads, head dim, FFN widths of the smoke config).
+SSM_SERVER_PROMPTS = (50, 100, 150, 200, 250, 300)
+SSM_SERVER_SLOTS = 4
+SSM_SERVER_NEW = 8
+JAMBA_SMALL_WIDTH = dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256)
+# RWKV-6's chunked prefill against its scan, fp32 at full size: logits and
+# every layer's state and shift.  The two routes sum the same terms in
+# another order (float32, about 1e-6 relative per layer), 32 layers deep.
+RWKV_CHUNK_TOL = dict(rtol=1e-3, atol=1e-3)
 SEG_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # The bfloat16 kernel against ref.py computed in float32 from the same
@@ -2454,6 +2494,353 @@ def lm_phase(peaks) -> dict:
     return out
 
 
+class DecodeRecorder:
+    """Keeps the arguments of the serve CLI's last ``decode_step`` call
+    while installed (parameters, tokens, caches, position, config), so a
+    phase can run more decode steps of the CLI's own model after ``main``
+    returns.  Calls go on unchanged."""
+
+    def __init__(self):
+        from repro_torch.launch import serve
+
+        self.module, self.original, self.last = serve, serve.decode_step, None
+
+    def __enter__(self):
+        def record(params, tokens, caches, cache_len, cfg, **kw):
+            self.last = (params, tokens, caches, cache_len, cfg)
+            return self.original(params, tokens, caches, cache_len, cfg, **kw)
+
+        self.module.decode_step = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.decode_step = self.original
+
+
+def decode_busy(call, steps: int = 4) -> dict:
+    """The recorded decode step repeated ``steps`` times on its own inputs:
+    warm ms per step (host clock, synchronized) and, under
+    ``torch.profiler``, the device's seconds and busy share of that wall
+    (None when the profiler records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.lm import model as lm
+
+    params, tokens, caches, cache_len, cfg = call
+
+    def run():
+        for _ in range(steps):
+            lm.decode_step(params, tokens, caches, cache_len, cfg)
+        torch.cuda.synchronize()
+
+    run()  # warmup
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    device_s = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(evt, "device_time_total", None)
+            device_s += (evt.cuda_time_total if us is None else us) / 1e6
+    return dict(warm_ms_per_step=1e3 * wall / steps,
+                device_s=device_s if device_s > 0 else None,
+                busy_share=device_s / wall if device_s > 0 else None)
+
+
+def ssm_cli_part(label: str, args: list, want_counts: dict | None, base: int, capture=False):
+    """One serve CLI run at full width with B5's counters set to 0 just
+    before and read just after (``want_counts``: the launches by design it
+    must give, every other design 0); its report, launches, peak memory
+    above ``base``, the recorded last decode call and, with ``capture``,
+    the ``_attend`` calls."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with AttendRecorder() as rec, DecodeRecorder() as dec:
+        rep, counts = b5_counted(lambda: serve.main(args))
+    wall = time.perf_counter() - t0
+    want = {**dict.fromkeys(counts, 0), **(want_counts or {})}
+    if counts != want:
+        raise AssertionError(f"{label}: B5 launches by design {counts}, want {want}")
+    toks = rep["tokens"]
+    n_req, gen = int(args[args.index("--requests") + 1]), int(args[args.index("--gen-len") + 1])
+    vocab = get_config(rep["arch"]).vocab
+    if toks.shape != (n_req, gen) or not (0 <= toks).all() or not (toks < vocab).all():
+        raise AssertionError(f"{label}: tokens {toks.shape}, range {toks.min()}..{toks.max()}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = gen - 1
+    row = dict({k: v for k, v in rep.items() if k not in ("tokens", "hot_experts")},
+               hot_experts=None if rep["hot_experts"] is None else rep["hot_experts"].tolist(),
+               wall_s=wall, launches=counts, decode_steps=steps,
+               decode_ms_per_step=1e3 * rep["decode_s"] / steps,
+               prefill_tok_s=n_req * int(args[args.index("--prompt-len") + 1]) / rep["prefill_s"],
+               max_memory_allocated=peak, memory_above_base=peak - base)
+    experts = ("" if rep["hot_experts"] is None else
+               f"; Eq. 1 split embed {rep['feat_bytes'] / 1e6:.1f} MB ({rep['embed_rows']} rows) / "
+               f"expert {rep['adj_bytes'] / 1e6:.1f} MB: {len(rep['hot_experts'])} hot experts "
+               f"of {rep['expert_bytes_each'] / 1e6:.2f} MB each {row['hot_experts']}, expert hit "
+               f"{rep['prompt_expert_hit_rate']:.4f} on the prompts' router top-k")
+    log(f"  {label} ({wall:.1f} s with init and caches): prefill {rep['prefill_s']:.4f} s "
+        f"({row['prefill_tok_s']:.0f} tok/s), decode {row['decode_ms_per_step']:.3f} ms per step; "
+        f"embed hit {rep['prompt_hit_rate']:.4f}{experts}; max_memory_allocated {peak / 1e9:.2f} "
+        f"GB ({(peak - base) / 1e9:.2f} above the phase's start); B5 {counts}")
+    return row, toks, dec.last, (dict(rec.calls) if capture else None)
+
+
+def ssm_server_part(label: str, cfg, params, prompts, want_prefill: str | None,
+                    base: int) -> dict:
+    """A float32 BatchedServer (SSM_SERVER_SLOTS slots) against a sequential
+    prefill + decode of each request: every request's greedy tokens equal,
+    or parting at a near-tie (LM_TIE_TOL).  ``want_prefill``: the B5 design
+    of the model's GQA layers' prefill (None: no GQA layer); the per-slot
+    decode launches nothing.  Peak memory above ``base`` is logged."""
+    import torch
+
+    from repro_torch.models.lm import model as lm
+    from repro_torch.runtime.serve_engine import BatchedServer
+
+    gqa = sum(k in ("attn", "local") for k in cfg.layer_kinds()) if cfg.attn_kind == "gqa" else 0
+    max_len = max(len(p) for p in prompts) + SSM_SERVER_NEW + 4
+
+    def serve_batched():
+        server = BatchedServer(cfg, params, slots=SSM_SERVER_SLOTS, max_len=max_len)
+        for i, p in enumerate(prompts):
+            server.submit(p, SSM_SERVER_NEW, req_id=i)
+        return server.run()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, counts = b5_counted(serve_batched)
+    batched_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {**dict.fromkeys(counts, 0), **({want_prefill: gqa * len(prompts)} if gqa else {})}
+    if counts != want:
+        raise AssertionError(f"{label} server: B5 launches {counts}, want {want}")
+
+    def sequential():
+        runs = []
+        for p in prompts:
+            logits, caches = lm.prefill(params, {"tokens": torch.as_tensor(p[None], device="cuda")},
+                                        cfg, cache_size=max_len)
+            steps = [logits[0, : cfg.vocab]]
+            for i in range(SSM_SERVER_NEW - 1):
+                nxt = torch.argmax(steps[-1]).view(1, 1)
+                logits, caches = lm.decode_step(params, nxt, caches, len(p) + i, cfg)
+                steps.append(logits[0, : cfg.vocab])
+            runs.append(steps)
+        return runs
+
+    t0 = time.perf_counter()
+    runs, seq_counts = b5_counted(sequential)
+    sequential_s = time.perf_counter() - t0
+    want = {**dict.fromkeys(seq_counts, 0), **({want_prefill: gqa * len(prompts),
+                                                "split": gqa * len(prompts) * (SSM_SERVER_NEW - 1)}
+                                               if gqa else {})}
+    if seq_counts != want:
+        raise AssertionError(f"{label} sequential: B5 launches {seq_counts}, want {want}")
+    checks = [greedy_check(f"{label} request {req.req_id}", req.generated,
+                           [int(torch.argmax(s)) for s in steps], steps)
+              for req, steps in zip(results, runs)]
+    differing = [c for c in checks if c["first_difference"] is not None]
+    log(f"  {label} fp32 BatchedServer, {SSM_SERVER_SLOTS} slots, prompts "
+        f"{[len(p) for p in prompts]}, {SSM_SERVER_NEW} new tokens: {batched_s:.2f} s; "
+        f"sequential {sequential_s:.2f} s; {len(checks) - len(differing)} of {len(checks)} "
+        f"requests equal" + (f", near-ties at {differing}" if differing else "")
+        + f"; B5 {counts} / sequential {seq_counts}; max_memory_allocated {peak / 1e9:.2f} GB "
+        f"({(peak - base) / 1e9:.2f} above the phase's start)")
+    return dict(batched_s=batched_s, sequential_s=sequential_s, checks=checks, launches=counts,
+                sequential_launches=seq_counts, max_memory_allocated=peak,
+                memory_above_base=peak - base)
+
+
+def ssm_phase(peaks) -> dict:
+    """LM serving for the MoE and state-space archs at full width (depth
+    cut to one card): Jamba v0.1, RWKV6-3B and DeepSeek-V2 through the serve
+    CLI's ``main``, RWKV-6's chunked prefill held to its scan, DeepSeek-V2's
+    dispatch run twice, fp32 BatchedServers held to sequential decoding,
+    and B5 at Jamba's shapes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm import tp as lm_tp
+    from repro_torch.models.lm.moe import moe_ffn
+    from repro_torch.models.lm.config import MoEConfig
+    from repro_torch.models.lm.norms import rms_norm
+    from repro_torch.utils.tree import tree_map
+
+    phase(f"16. LM serving, MoE and state-space archs: Jamba v0.1 ({JAMBA_LAYERS} layers), "
+          f"RWKV6-3B, DeepSeek-V2 ({DEEPSEEK_LAYERS} layers), full width, bf16; fp32 "
+          "BatchedServers")
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+    marks = {}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+
+    # (a) Jamba v0.1, one pattern period: 7 Mamba layers, 1 attention, 4 MoE.
+    n_req, prompt_len = JAMBA_PREFILL
+    args = ["--arch", "jamba-v0.1-52b", "--layers", str(JAMBA_LAYERS), "--requests", str(n_req),
+            "--prompt-len", str(prompt_len), "--gen-len", str(SSM_DECODE_STEPS + 1),
+            "--cache-mb", str(JAMBA_CACHE_MB)]
+    row, _, call, captured = ssm_cli_part(
+        "Jamba", args, {"wgmma": 1, "split": SSM_DECODE_STEPS}, base, capture=True)
+    if not row["hot_experts"]:
+        raise AssertionError(f"Jamba: Eq. 1's expert share {row['adj_bytes']} B holds no expert "
+                             f"of {row['expert_bytes_each']} B")
+    row["decode"] = decode_busy(call)
+    out["jamba"] = row
+    out["launches"]["jamba"] = row["launches"]
+    log(f"    decode, warm: {row['decode']['warm_ms_per_step']:.3f} ms per step, device busy "
+        f"{row['decode']['busy_share']}")
+    del call
+    torch.cuda.empty_cache()
+    marks["jamba"] = time.perf_counter() - t_phase
+
+    # (b) RWKV6-3B at full size: the scan route, then the chunked route.
+    n_req, prompt_len = RWKV_PREFILL
+    args = ["--arch", "rwkv6-3b", "--requests", str(n_req), "--prompt-len", str(prompt_len),
+            "--gen-len", str(SSM_DECODE_STEPS + 1), "--cache-mb", str(SSM_CACHE_MB)]
+    row, scan_toks, call, _ = ssm_cli_part("RWKV6-3B, scan prefill", args, None, base)
+    row["decode"] = decode_busy(call)
+    log(f"    decode, warm: {row['decode']['warm_ms_per_step']:.3f} ms per step, device busy "
+        f"{row['decode']['busy_share']}")
+    del call
+    lm_tp.set_rwkv_chunked(True)
+    try:
+        chunked, chunked_toks, call, _ = ssm_cli_part("RWKV6-3B, chunked prefill", args, None, base)
+    finally:
+        lm_tp.set_rwkv_chunked(False)
+    del call
+    row["chunked"] = chunked
+    row["chunked_tokens_equal"] = bool(np.array_equal(scan_toks, chunked_toks))
+    out["launches"]["rwkv6"] = row["launches"]
+    out["launches"]["rwkv6_chunked"] = chunked["launches"]
+    # The chunked prefill held to the scan at full size in fp32, on the
+    # CLI's own prompts and weights (its generator and seed).
+    cfg32 = dataclasses.replace(get_config("rwkv6-3b"), dtype="float32")
+    params32 = lm.init_params(cfg32, generator=torch.Generator(device="cuda").manual_seed(0))
+    stream = TokenStream(vocab=cfg32.vocab, seed=1)
+    toks = torch.as_tensor(stream.sample(np.random.default_rng(2), n_req, prompt_len),
+                           device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan_l, scan_c = lm.prefill(params32, {"tokens": toks}, cfg32)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    lm_tp.set_rwkv_chunked(True)
+    try:
+        t0 = time.perf_counter()
+        chunk_l, chunk_c = lm.prefill(params32, {"tokens": toks}, cfg32)
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+    finally:
+        lm_tp.set_rwkv_chunked(False)
+    errs = {"logits": float((chunk_l - scan_l).abs().max())}
+    torch.testing.assert_close(chunk_l, scan_l, **RWKV_CHUNK_TOL)
+    for key in ("state", "shift"):
+        got, want = chunk_c[0]["tm"][key], scan_c[0]["tm"][key]
+        errs[key] = float((got - want).abs().max())
+        errs[key + "_max_abs"] = float(want.abs().max())
+        torch.testing.assert_close(got, want, **RWKV_CHUNK_TOL)
+    del scan_c, chunk_c, scan_l, chunk_l
+    row["fp32_chunked_vs_scan"] = dict(errs, scan_prefill_s=scan_s, chunked_prefill_s=chunk_s,
+                                       tol=RWKV_CHUNK_TOL)
+    out["rwkv6"] = row
+    log(f"    chunked prefill (bf16, CLI) {chunked['prefill_s']:.4f} s against the scan's "
+        f"{row['prefill_s']:.4f} s; greedy tokens equal: {row['chunked_tokens_equal']}; fp32 at "
+        f"full size, {n_req} x {prompt_len}: scan {scan_s:.4f} s, chunked {chunk_s:.4f} s, "
+        f"chunked within {RWKV_CHUNK_TOL} of the scan (logits max abs err {errs['logits']:.3g}, "
+        f"every layer's state {errs['state']:.3g} of |state| up to {errs['state_max_abs']:.3g}, "
+        f"shift {errs['shift']:.3g})")
+    marks["rwkv6"] = time.perf_counter() - t_phase
+
+    # (d, RWKV-6) the fp32 BatchedServer on the same full-size fp32 model.
+    stream = TokenStream(vocab=cfg32.vocab, seed=3)
+    rng = np.random.default_rng(4)
+    prompts = [stream.sample(rng, 1, n)[0] for n in SSM_SERVER_PROMPTS]
+    out["rwkv6_server"] = ssm_server_part("RWKV6-3B", cfg32, params32, prompts, None, base)
+    out["launches"]["rwkv6_server"] = out["rwkv6_server"]["launches"]
+    del params32
+    torch.cuda.empty_cache()
+    marks["rwkv6_server"] = time.perf_counter() - t_phase
+
+    # (c) DeepSeek-V2, 2 layers: MLA (plain torch) and 160 experts top-6 + 2 shared.
+    n_req, prompt_len = DEEPSEEK_PREFILL
+    args = ["--arch", "deepseek-v2-236b", "--layers", str(DEEPSEEK_LAYERS), "--requests",
+            str(n_req), "--prompt-len", str(prompt_len), "--gen-len",
+            str(DEEPSEEK_DECODE_STEPS + 1), "--cache-mb", str(SSM_CACHE_MB)]
+    row, _, call, _ = ssm_cli_part("DeepSeek-V2", args, None, base)
+    row["decode"] = decode_busy(call)
+    params, _, _, _, cfg = call
+    # The dispatch twice on one input: the first MoE layer on the normed
+    # embedding rows of the CLI's prompts.
+    prompts = TokenStream(vocab=cfg.vocab, seed=1).sample(np.random.default_rng(2), n_req,
+                                                          prompt_len)
+    block = tree_map(lambda a: a[0], {k: params["blocks"][0][k] for k in ("ln2", "moe")})
+    x = rms_norm(block["ln2"], params["embed"][torch.as_tensor(prompts, device="cuda").long()])
+    first, first_aux = moe_ffn(block["moe"], x, cfg)
+    again, again_aux = moe_ffn(block["moe"], x, cfg)
+    if not (torch.equal(first.view(torch.int16), again.view(torch.int16))
+            and torch.equal(first_aux, again_aux)):
+        raise AssertionError("DeepSeek-V2: the MoE dispatch gave other bits on a second run")
+    row["dispatch_ms"] = cuda_ms(lambda: moe_ffn(block["moe"], x, cfg), reps=3)
+    out["deepseek"] = row
+    out["launches"]["deepseek"] = row["launches"]
+    log(f"    decode, warm: {row['decode']['warm_ms_per_step']:.3f} ms per step, device busy "
+        f"{row['decode']['busy_share']}; the first MoE layer's dispatch on {tuple(x.shape)} "
+        f"twice: the same bits (output and aux), {row['dispatch_ms']:.3f} ms per call")
+    del call, params, block, x, first, again
+    torch.cuda.empty_cache()
+    marks["deepseek"] = time.perf_counter() - t_phase
+
+    # (d, Jamba) fp32 at the smallest width that keeps the period-8 pattern,
+    # MoE every other layer and 16 experts top-2 (one period at full width
+    # is 52 GB in fp32).
+    small = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS,
+                                dtype="float32", **JAMBA_SMALL_WIDTH,
+                                moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=256, every=2))
+    params = lm.init_params(small, generator=torch.Generator(device="cuda").manual_seed(SEED + 3))
+    stream = TokenStream(vocab=small.vocab, seed=5)
+    rng = np.random.default_rng(6)
+    prompts = [stream.sample(rng, 1, n)[0] for n in SSM_SERVER_PROMPTS]
+    out["jamba_server"] = ssm_server_part("Jamba (small width)", small, params, prompts, "fma",
+                                          base)
+    out["launches"]["jamba_server"] = out["jamba_server"]["launches"]
+    del params
+    marks["jamba_server"] = time.perf_counter() - t_phase
+
+    # (e) B5 at Jamba's shapes: its prefill and its last decode step.
+    torch.cuda.empty_cache()
+    sk = JAMBA_PREFILL[1] + SSM_DECODE_STEPS
+    out["shapes"] = {
+        "jamba_prefill": lm_shape_row("jamba_prefill", captured[("prefill", None)], peaks,
+                                      sdpa_library),
+        "jamba_decode": lm_shape_row("jamba_decode", captured[("decode", sk)], peaks,
+                                     sdpa_library),
+    }
+    del captured
+    torch.cuda.empty_cache()
+    out["launches_total"] = sum(sum(c.values()) for c in out["launches"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_at"] = marks
+    log(f"  phase 16: {out['seconds']:.1f} s (at the end of each step: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())}); B5 launched "
+        f"{out['launches_total']} times on these paths ({out['launches']})")
+    return out
+
+
 def cli_phase() -> dict:
     from repro_torch.core.faults import FaultPlan, FaultRule
 
@@ -2566,6 +2953,7 @@ def main() -> int:
     sharded = sharded_phase(ds, eng, serving)
     del serving["outputs"]
     lm = lm_phase(peaks)
+    ssm = ssm_phase(peaks)
     # Launches on the paths: the nine routes, the baselines', the
     # layer-wise, the serving, refresh and sharded runs, each counted from
     # 0 just before it.
@@ -2601,10 +2989,11 @@ def main() -> int:
          "library_ms": seg_row["library_ms"]},
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
-        # launches: the ops path's and phase 15's LM serving runs.
+        # launches: the ops path's and phases 15 and 16's LM serving runs.
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
          "replaces": REPLACES["flash_attention"],
-         "launches": ops_launches["flash_attention"] + lm["launches_total"],
+         "launches": ops_launches["flash_attention"] + lm["launches_total"]
+         + ssm["launches_total"],
          "max_abs_err": att_err, "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
          "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
          "library_ms": prefill["library_ms"]},
@@ -2615,7 +3004,7 @@ def main() -> int:
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
-        "lm": lm,
+        "lm": lm, "ssm": ssm,
         "cli": cli, "path_launches": path_launches,
         "serve_launches": serve_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,

@@ -6,13 +6,17 @@ cache (hot embeddings / hot experts) → prefill the batch → decode N tokens,
 reporting tokens/s and cache hit rates.  It runs on the card unless
 ``--device cpu`` is given (and raises without a card otherwise); on the
 card the prefill and decode times end in ``torch.cuda.synchronize()``.
-Every prefill and every decode step runs its attention through the
-flash-attention kernel there.
+Every prefill and every decode step runs its GQA attention through the
+flash-attention kernel there.  For an MoE arch the report adds the hot
+experts, the bytes Eq. 1 counts for each, and the expert hit rate on the
+prompts' router top-k (the first MoE block's router on their embedding
+rows, as the profile counts experts).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -22,7 +26,7 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.models.lm.model import decode_step, init_params, prefill
-from repro_torch.runtime.lm_cache import build_serving_caches
+from repro_torch.runtime.lm_cache import build_serving_caches, router_top_k
 
 
 def _sync(device: torch.device) -> None:
@@ -38,11 +42,16 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--cache-mb", type=float, default=4.0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to the first N layers (a multiple of the arch's "
+                         "pattern period), for a model too large for one card")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if cfg.encoder_layers > 0 or cfg.input_mode == "embeds":
         raise SystemExit("the serve CLI targets decoder-only token archs")
     params = init_params(cfg, generator=torch.Generator(device=device).manual_seed(0),
@@ -66,6 +75,11 @@ def main(argv: list[str] | None = None) -> dict:
     )
     prompt_hit = caches_dci.embed_hit_rate(prompts)
     print(f"[dci] embed hit rate on live prompts: {prompt_hit:.3f}")
+    prompt_experts = router_top_k(cfg, params, prompts)
+    expert_hit = None if prompt_experts is None else caches_dci.expert_hit_rate(prompt_experts)
+    if expert_hit is not None:
+        print(f"[dci] expert hit rate on live prompts' router top-{cfg.moe.top_k}: "
+              f"{expert_hit:.3f}")
 
     # ---- batched prefill + decode ---------------------------------------
     cache_size = args.prompt_len + args.gen_len
@@ -93,8 +107,10 @@ def main(argv: list[str] | None = None) -> dict:
         f"{gen_hit:.3f}"
     )
     return {
-        "arch": cfg.arch_id, "device": str(device), "embed_rows": caches_dci.embed_cache.num_cached,
+        "arch": cfg.arch_id, "layers": cfg.n_layers, "device": str(device), "embed_rows": caches_dci.embed_cache.num_cached,
         "feat_bytes": a.feat_bytes, "adj_bytes": a.adj_bytes, "prompt_hit_rate": prompt_hit,
+        "hot_experts": caches_dci.hot_experts, "expert_bytes_each": caches_dci.expert_bytes_each,
+        "prompt_expert_hit_rate": expert_hit,
         "prefill_s": t_prefill, "decode_s": t_decode, "decode_tok_s": tput,
         "gen_hit_rate": gen_hit, "tokens": gen,
     }

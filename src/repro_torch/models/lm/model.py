@@ -6,7 +6,8 @@ over pattern positions of dicts whose leaves carry a leading repeat dim
 same way.  A Python loop over the repeats takes the place of the
 reference's ``lax.scan``; the returned caches are new tensors (the ones
 passed in are left as they were).  :func:`params_from_jax` carries the
-reference's parameters over as they are.
+reference's parameters over as they are, each leaf in its own dtype
+(the float32 router, SSM and RWKV leaves of a bfloat16 model included).
 
 Not ported yet: the encoder stack of encoder-decoder configs
 (SeamlessM4T; ROADMAP A-item 18.3) and ``train_loss`` (A-item 18.4).
@@ -122,8 +123,9 @@ def _run_prefill_stack(
     collect: bool,
 ):
     caches: list[list] = [[] for _ in range(cfg.pattern_period)]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    auxs = []  # per repeat, summed over the pattern positions, as the reference's scan body
     for r in range(cfg.n_repeats):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos in range(cfg.pattern_period):
             x, cache, a = block_prefill(
                 tree_map(lambda leaf: leaf[r], blocks[pos]),
@@ -139,7 +141,8 @@ def _run_prefill_stack(
             if collect:
                 caches[pos].append(cache)
             aux = aux + a
-    return x, (tuple(_stack(c) for c in caches) if collect else None), aux
+        auxs.append(aux)
+    return x, (tuple(_stack(c) for c in caches) if collect else None), torch.stack(auxs).sum()
 
 
 def _embed_in(params, cfg: LMConfig, batch: dict) -> torch.Tensor:

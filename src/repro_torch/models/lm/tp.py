@@ -5,8 +5,9 @@ an explicit bf16 ``psum`` when a tensor-parallel mesh is set, and can pin
 it with an optimization barrier.  On one device both are plain: the
 row-parallel matmul is ``h @ w`` and the barrier is the identity.  Setting
 a mesh raises: sharded LM execution comes with the dry-runs (ROADMAP
-A-item 19).  The remat and chunked-RWKV flags keep their setters and
-getters; nothing in the ported serving path reads them.
+A-item 19).  ``set_rwkv_chunked(True)`` routes RWKV-6 prefill to the
+chunked WKV6 (``blocks.block_prefill``); the remat flag keeps its setter
+and getter for training (A-item 18.4).
 """
 
 from __future__ import annotations

@@ -11,7 +11,12 @@ the slot — admission never stalls the running batch.  The server owns its
 caches and writes the admitted request's into them in place.
 
 Decoder-only token architectures; greedy sampling.  The server runs on
-the device its parameters lie on.
+the device its parameters lie on.  Every leaf of the caches carries the
+slot at dim 1 (``[R, B, ...]``: attention KV, the Mamba conv window and
+SSM state, the RWKV-6 states and shifts), so one insert covers every
+mixer.  Decode runs every slot, inactive ones included, so MoE capacity
+is shared across slots in a decode step, as in the reference (documented
+coupling — capacity_factor is ample at decode batch sizes).
 """
 
 from __future__ import annotations
@@ -81,7 +86,7 @@ class BatchedServer:
             req.generated.append(tok)
 
             # scatter the single-request caches into slot s (batch dim = 1
-            # of the [R, B, S, ...] leaves)
+            # of every [R, B, ...] leaf)
             def insert(slot_leaf, new_leaf):
                 slot_leaf[:, s] = new_leaf[:, 0]
 

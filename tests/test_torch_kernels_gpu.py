@@ -34,6 +34,7 @@ from repro_torch.kernels.seg_agg import kernel as sa
 from repro_torch.kernels.seg_agg.ref import seg_agg_ref
 from repro_torch.models.lm import attention as lm_attn
 from repro_torch.models.lm import model as lm_model
+from repro_torch.models.lm import moe as lm_moe
 from repro_torch.runtime import serve_engine as lm_serve_engine
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
 from repro_torch.utils.tree import tree_map
@@ -943,3 +944,71 @@ def test_lm_batched_server_on_the_card_matches_sequential_decoding(cuda):
                                                   caches, len(prompt) + i, cfg)
             toks.append(int(torch.argmax(logits[0, : cfg.vocab])))
         assert req.generated == toks, req.req_id
+
+
+def test_lm_moe_top6_gives_the_same_bits_on_every_run_on_the_card(cuda):
+    """DeepSeek-V2's top-6 in bfloat16: the combine adds each token's rows
+    in a fixed order (no atomics), so repeated runs on the card give the
+    same bits; the card's output is the CPU route's at the bfloat16
+    whole-model tolerance (atol 3e-2, rtol 1e-2)."""
+    cfg = get_smoke("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=16, top_k=6))
+    params = lm_moe.init_moe_params(torch.Generator().manual_seed(15), cfg, torch.bfloat16,
+                                    device="cpu")
+    x = torch.randn((4, 256, cfg.d_model), generator=torch.Generator().manual_seed(16)).bfloat16()
+    card = tree_map(lambda a: a.to(cuda), params)
+    runs = [lm_moe.moe_ffn(card, x.to(cuda), cfg) for _ in range(4)]
+    for out, aux in runs[1:]:
+        assert torch.equal(out.view(torch.int16), runs[0][0].view(torch.int16))
+        assert torch.equal(aux, runs[0][1])
+    want, want_aux = lm_moe.moe_ffn(params, x, cfg)
+    torch.testing.assert_close(runs[0][0].cpu().float(), want.float(), atol=3e-2, rtol=1e-2)
+    torch.testing.assert_close(runs[0][1].cpu(), want_aux, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b", "phi3.5-moe-42b-a6.6b",
+                                  "deepseek-v2-236b"])
+def test_lm_moe_and_ssm_smoke_models_on_the_card_match_the_cpu(cuda, arch):
+    """float32 smoke configs: logits at 1e-4 of the CPU route and greedy
+    tokens equal over a prefill and 8 decode steps; one B5 launch per GQA
+    layer per call (``fma`` prefill, ``split`` decode), none for RWKV-6
+    and DeepSeek-V2's MLA."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    cpu_params, card_params = _lm_params(cfg, cuda)
+    gqa = sum(k in ("attn", "local") for k in cfg.layer_kinds()) if cfg.attn_kind == "gqa" else 0
+    toks = torch.from_numpy(np.random.default_rng(17).integers(0, cfg.vocab, (2, 20)))
+    want, want_c = lm_model.prefill(cpu_params, {"tokens": toks}, cfg, cache_size=32)
+    (got, got_c), counts = _b5_counts(
+        lambda: lm_model.prefill(card_params, {"tokens": toks.to(cuda)}, cfg, cache_size=32))
+    assert counts == {**dict.fromkeys(fa.DESIGNS, 0), **({"fma": gqa} if gqa else {})}
+    for step in range(8):
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        nxt = torch.argmax(want[:, : cfg.vocab], -1)[:, None]
+        assert torch.equal(torch.argmax(got[:, : cfg.vocab], -1)[:, None].cpu(), nxt)
+        want, want_c = lm_model.decode_step(cpu_params, nxt, want_c, 20 + step, cfg)
+        (got, got_c), counts = _b5_counts(lambda: lm_model.decode_step(
+            card_params, nxt.to(cuda), got_c, 20 + step, cfg))
+        assert counts == {**dict.fromkeys(fa.DESIGNS, 0), **({"split": gqa} if gqa else {})}
+    got_leaves, want_leaves = [], []
+    tree_map(got_leaves.append, got_c)
+    tree_map(want_leaves.append, want_c)
+    for g, w in zip(got_leaves, want_leaves, strict=True):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+def test_lm_jamba_launches_b5_once_per_prefill_and_decode_step_in_bfloat16(cuda):
+    """Jamba's one attention layer per period runs on B5: in bfloat16 one
+    ``wgmma`` launch per prefill and one ``split`` per decode step, as
+    chip_smoke.py's phase 16 expects at full width; the Mamba layers and
+    the MoE launch none."""
+    cfg = get_smoke("jamba-v0.1-52b")
+    _, params = _lm_params(cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(18).integers(0, cfg.vocab, (3, 40))).to(cuda)
+    (logits, caches), counts = _b5_counts(
+        lambda: lm_model.prefill(params, {"tokens": toks}, cfg, cache_size=48))
+    assert counts == {**dict.fromkeys(fa.DESIGNS, 0), "wgmma": 1}
+    for step in range(4):
+        (logits, caches), counts = _b5_counts(lambda: lm_model.decode_step(
+            params, torch.argmax(logits, -1)[:, None], caches, 40 + step, cfg))
+        assert counts == {**dict.fromkeys(fa.DESIGNS, 0), "split": 1}
+    assert bool(torch.isfinite(logits).all())

@@ -12,6 +12,7 @@ tests/test_torch_kernels_gpu.py.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,13 +125,11 @@ def test_dense_ffn_matches_reference(activation):
 
 
 def test_unported_moe_and_mesh_raise_naming_the_roadmap_item():
-    cfg = get_smoke("phi3.5-moe-42b-a6.6b")
-    gen = torch.Generator().manual_seed(0)
-    for call in (lambda: TMoE.moe_capacity(64, cfg),
-                 lambda: TMoE.init_moe_params(gen, cfg, torch.float32, device="cpu"),
-                 lambda: TMoE.moe_ffn({}, torch.zeros(1, 1, cfg.d_model), cfg)):
-        with pytest.raises(NotImplementedError, match="A-item 18.2"):
-            call()
+    """Meshes (tensor-parallel LM, expert-parallel MoE) wait for A-item 19;
+    ``None`` is the one-device no-op."""
+    with pytest.raises(NotImplementedError, match="A-item 19"):
+        TMoE.set_shard_map_context(object(), ("data",), "model")
+    TMoE.set_shard_map_context(None)
     with pytest.raises(NotImplementedError, match="A-item 19"):
         tp.set_tp_context(object())
     tp.set_tp_context(None)
@@ -306,29 +305,33 @@ def test_ring_from_full_matches_reference(s, cache_size):
                                   np.asarray(JB._ring_from_full(jnp.asarray(full), cache_size)))
 
 
-@pytest.mark.parametrize("kind,long_mode", [("attn", False), ("local", False), ("attn", True)])
+@pytest.mark.parametrize("kind,long_mode", [("attn", False), ("local", False), ("attn", True),
+                                            ("mamba", False), ("rwkv", False)])
 def test_window_for_and_cache_shapes_match_reference(kind, long_mode):
-    cfg = get_smoke("gemma2-27b")
-    jcfg = jax_smoke("gemma2-27b")
-    pos = cfg.block_pattern.index(kind)
-    assert TB.window_for(kind, cfg, long_mode) == JB.window_for(kind, jcfg, long_mode)
-    for cache_size in (4, 40):
-        got = TB.init_block_cache(cfg, pos, 3, cache_size, torch.float32, long_mode=long_mode,
-                                  enc_len=5)
-        want = JB.init_block_cache(jcfg, pos, 3, cache_size, jnp.float32, long_mode=long_mode,
-                                   enc_len=5)
-        for a in ("self", "cross_kv"):
-            for key in ("k", "v"):
-                assert tuple(got[a][key].shape) == want[a][key].shape
-                assert not got[a][key].any()
+    """Every arch whose pattern has ``kind`` (Gemma-2 27B, Phi-3.5-MoE,
+    DeepSeek-V2's MLA, Jamba, RWKV-6): window, and the cache's layout,
+    shapes and dtypes (a bfloat16 model's SSM states are float32), zeros."""
+    for arch in ("gemma2-27b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "jamba-v0.1-52b",
+                 "rwkv6-3b"):
+        cfg, jcfg = get_smoke(arch), jax_smoke(arch)
+        if kind not in cfg.block_pattern:
+            continue
+        pos = cfg.block_pattern.index(kind)
+        assert TB.window_for(kind, cfg, long_mode) == JB.window_for(kind, jcfg, long_mode)
+        for cache_size, enc_len in ((4, 5), (40, 5), (40, None)):
+            got = TB.init_block_cache(cfg, pos, 3, cache_size, torch.bfloat16,
+                                      long_mode=long_mode, enc_len=enc_len)
+            want = JB.init_block_cache(jcfg, pos, 3, cache_size, jnp.bfloat16,
+                                       long_mode=long_mode, enc_len=enc_len)
+            assert jax.tree.structure(got) == jax.tree.structure(want), arch
+            for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+                assert tuple(g.shape) == w.shape and str(g.dtype) == f"torch.{w.dtype}", arch
+                assert not g.any()
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
-def test_unported_mixers_raise_naming_the_roadmap_item(arch):
-    cfg = get_smoke(arch)
-    gen = torch.Generator().manual_seed(0)
-    pos = next(i for i, k in enumerate(cfg.block_pattern) if k in ("mamba", "rwkv"))
-    with pytest.raises(NotImplementedError, match="A-item 18.2"):
-        TB.init_block_params(gen, cfg, pos, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A-item 18.2"):
-        TB.init_block_cache(cfg, pos, 1, 8, torch.float32, long_mode=False)
+def test_an_unknown_block_kind_raises():
+    cfg = dataclasses.replace(get_smoke("gemma-2b"), block_pattern=("conv",))
+    with pytest.raises(ValueError, match="conv"):
+        TB.init_block_params(torch.Generator(), cfg, 0, torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="conv"):
+        TB.init_block_cache(cfg, 0, 1, 8, torch.float32, long_mode=False)

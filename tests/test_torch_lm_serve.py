@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -56,7 +57,8 @@ def sequential_generate(cfg, params, prompt, max_new, max_len):
     return toks
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-27b", "jamba-v0.1-52b", "rwkv6-3b",
+                                  "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
 def test_batched_server_generates_the_reference_tokens(arch):
     jcfg, jp, cfg, tp = _pair(arch)
     rng = np.random.default_rng(0)
@@ -124,11 +126,60 @@ def test_serving_caches_match_the_reference():
             jax_allocate(*lap_pair, 10**6))
 
 
-def test_moe_serving_caches_raise_naming_the_roadmap_item():
-    cfg = get_smoke("phi3.5-moe-42b-a6.6b")
-    with pytest.raises(NotImplementedError, match="A-item 18.2"):
-        TC.profile_and_allocate(cfg, {"embed": torch.zeros(cfg.vocab_padded, 4)},
-                                np.zeros((1, 4), np.int32), total_cache_bytes=1000)
+class _Clock:
+    """A ``time`` stand-in whose ``perf_counter`` steps by 1, 2, 3, ...
+    ms: each package's profile makes the same calls in the same order, so
+    both read the same stage laps."""
+
+    def __init__(self):
+        self.now, self.step = 0.0, 0.0
+
+    def perf_counter(self):
+        self.step += 1e-3
+        self.now += self.step
+        return self.now
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "jamba-v0.1-52b"])
+def test_moe_serving_caches_match_the_reference(arch, monkeypatch):
+    """The expert stage of Eq. 1 with the stage laps pinned: the same
+    split, token and expert counts, hot rows, hot experts (above-mean fill
+    with its stable tie order, cut or topped up to the budget), bytes per
+    expert and hit rates as the reference."""
+    jcfg, jp, cfg, tp = _pair(arch)
+    stream = TokenStream(vocab=cfg.vocab, seed=1)
+    rng = np.random.default_rng(2)
+    prompts = stream.sample(rng, 4, 24)
+    sample = stream.sample(rng, 8, 24)
+    per_expert = JC._expert_param_bytes(jcfg) // jcfg.moe.n_experts
+    hot_sizes = set()
+    for experts in (0, 1, 2, 3, 100):
+        budget = 2 * experts * per_expert + 50_000
+        monkeypatch.setattr(TC, "time", _Clock())
+        monkeypatch.setattr(JC, "time", _Clock())
+        got = TC.build_serving_caches(cfg, tp, sample, total_cache_bytes=budget)
+        want = JC.build_serving_caches(jcfg, jp, sample, total_cache_bytes=budget)
+        assert dataclasses.astuple(got.allocation) == dataclasses.astuple(want.allocation)
+        np.testing.assert_array_equal(got.token_counts, want.token_counts)
+        np.testing.assert_array_equal(got.expert_counts, want.expert_counts)
+        np.testing.assert_array_equal(got.embed_cache.position_np(),
+                                      np.asarray(want.embed_cache.position_map))
+        np.testing.assert_array_equal(got.hot_experts, want.hot_experts)
+        assert got.hot_experts.dtype == np.int32
+        assert got.expert_bytes_each == want.expert_bytes_each == per_expert
+        hot_sizes.add(len(got.hot_experts))
+        for ids in (np.arange(cfg.moe.n_experts), np.array([[0, 1], [1, 1], [3, 0]]),
+                    TC.router_top_k(cfg, tp, prompts)):
+            assert got.expert_hit_rate(ids) == want.expert_hit_rate(ids)
+        for toks in (prompts, sample):
+            assert got.embed_hit_rate(toks) == want.embed_hit_rate(toks)
+    assert len(hot_sizes) >= 3  # empty, cut to the budget, and every expert
+    # The live prompts' router top-k is the profile's selection rule.
+    rows = jp["embed"][jnp.asarray(prompts)].astype(jnp.float32)
+    router = [b for b in jp["blocks"] if "moe" in b][0]["moe"]["router"][0]
+    want_top = np.asarray(jax.lax.top_k(rows @ router, jcfg.moe.top_k)[1])
+    np.testing.assert_array_equal(np.sort(TC.router_top_k(cfg, tp, prompts), -1),
+                                  np.sort(want_top, -1))
 
 
 def test_token_stream_gives_the_reference_tokens():
@@ -159,11 +210,39 @@ def test_cli_runs_on_the_cpu_at_smoke_size(capsys):
         assert list(out["tokens"][i]) == sequential_generate(cfg, params, prompt, 5, 21)
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-3b"])
+def test_cli_runs_the_moe_and_ssm_archs_on_the_cpu(arch, capsys):
+    """Jamba (Mamba + attention + MoE: the expert cache takes its Eq. 1
+    share) and RWKV-6 (attention-free, dense: no expert stage) through the
+    CLI; greedy tokens equal to a sequential prefill + decode."""
+    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
+                      "--prompt-len", "12", "--gen-len", "4", "--cache-mb", "0.2"])
+    printed = capsys.readouterr().out
+    assert "[serve] 2 reqs" in printed and out["tokens"].shape == (2, 4)
+    assert out["layers"] == 2
+    cut = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--layers",
+                      str(len(get_smoke(arch).block_pattern)), "--requests", "1",
+                      "--prompt-len", "8", "--gen-len", "2"])
+    assert cut["layers"] == len(get_smoke(arch).block_pattern)
+    cfg = get_smoke(arch)
+    if cfg.moe is None:
+        assert out["hot_experts"] is None and out["expert_bytes_each"] == 0
+        assert out["adj_bytes"] == 0 and out["prompt_expert_hit_rate"] is None
+    else:
+        assert "expert hit rate on live prompts" in printed
+        assert out["adj_bytes"] > 0 and out["expert_bytes_each"] == 3 * 128 * 256 * 2 * 2 // 2 // 4
+        assert len(out["hot_experts"]) == min(out["adj_bytes"] // out["expert_bytes_each"], 4)
+        assert 0.0 <= out["prompt_expert_hit_rate"] <= 1.0
+    params = TM.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    prompts = TokenStream(vocab=cfg.vocab, seed=1).sample(np.random.default_rng(2), 2, 12)
+    for i, prompt in enumerate(prompts):
+        assert list(out["tokens"][i]) == sequential_generate(cfg, params, prompt, 4, 16)
+
+
 def test_cli_rejects_embeds_archs_and_raises_without_a_card(monkeypatch):
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "qwen2-vl-2b", "--smoke", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A-item 18.2"):
-        serve.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu"])
+    for arch in ("qwen2-vl-2b", "seamless-m4t-medium"):
+        with pytest.raises(SystemExit):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "gemma-2b", "--smoke"])
