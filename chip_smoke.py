@@ -171,7 +171,26 @@ whose errors is caught:
    ``BatchedServer``s for RWKV6-3B (full size) and Jamba (one period at
    the smoke config's width) whose tokens must equal sequential
    decoding; and B5 held to ``ref.py`` and timed beside SDPA at Jamba's
-   prefill and decode shapes.  Its B5 launches join the kernels' line.
+   prefill and decode shapes.  Its B5 launches join the kernels' line;
+17. the encoder-decoder: SeamlessM4T-medium at full size (12 + 12 layers,
+   d 1024, 16 heads x 64, d_ff 4096, vocab 256206; bf16, random weights
+   from a seeded card generator) through ``launch/steps.py``: a prefill
+   of 4 x 1024 source frames and 4 x 256 target tokens, then 16 greedy
+   decode steps, cold and warm; every attention on B5 (the counters must
+   read 36 ``wgmma`` per prefill — encoder self, decoder self and cross —
+   and 24 ``split`` per decode step); prefill s, decode ms per step and
+   ``max_memory_allocated``; an fp32 smoke config against the CPU route
+   at 1e-4; B5 held to ``ref.py`` at each new shape (head dim 64, non-
+   causal, Sq != Sk) and timed beside SDPA;
+18. training: Gemma 2B at full size through the train CLI's ``main``
+   (bf16, fp32 AdamW moments, 4 x 2048 tokens, 4 steps): each step's
+   synchronized time and tokens/s, split between forward + backward and
+   the AdamW update, the losses (finite, the first near ln 256000) and
+   ``max_memory_allocated``; no B5 launch in the steps (attention under
+   autograd takes the plain route), then an eval prefill of the trained
+   parameters on B5 (18 ``wgmma``); the fp32 smoke config's loss and
+   gradients on the card against the CPU route at 1e-4, and one step's
+   parameters and AdamW state through a checkpoint, bit for bit.
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -262,6 +281,16 @@ JAMBA_SMALL_WIDTH = dict(d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff
 # every layer's state and shift.  The two routes sum the same terms in
 # another order (float32, about 1e-6 relative per layer), 32 layers deep.
 RWKV_CHUNK_TOL = dict(rtol=1e-3, atol=1e-3)
+# Phase 17, the encoder-decoder (src/repro/configs/seamless_m4t_medium.py at
+# full size, bf16): batch x source frames, target prompt tokens, decode steps.
+ENCDEC_SRC = (4, 1024)
+ENCDEC_PROMPT = 256
+ENCDEC_DECODE_STEPS = 16
+# Phase 18, training Gemma 2B at full size through the train CLI: batch x
+# sequence, steps, and the eval prefill of the trained parameters after it.
+TRAIN_SHAPE = (4, 2048)
+TRAIN_STEPS = 4
+TRAIN_EVAL_PREFILL = (1, 512)
 SEG_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # The bfloat16 kernel against ref.py computed in float32 from the same
@@ -2063,18 +2092,22 @@ class AttendRecorder:
     """Keeps the inputs of the LM's ``_attend`` calls while installed: the
     first prefill call of each window (the first layer of each kind) and
     the last decode call at each key count (decode attends over the kept
-    ring slots with no window).  Calls go on to the routed ``_attend``
+    ring slots with no window); with ``by_shape``, the first call at each
+    (Sq, Sk, causal) instead.  Calls go on to the routed ``_attend``
     unchanged."""
 
-    def __init__(self):
+    def __init__(self, by_shape: bool = False):
         from repro_torch.models.lm import attention
 
         self.module, self.original, self.calls = attention, attention._attend, {}
+        self.by_shape = by_shape
 
     def __enter__(self):
         def record(q, k, v, *, causal, window, softcap):
             kw = dict(causal=causal, window=window, softcap=softcap)
-            if q.shape[1] > 1:
+            if self.by_shape:
+                self.calls.setdefault((q.shape[1], k.shape[1], causal), (q, k, v, kw))
+            elif q.shape[1] > 1:
                 self.calls.setdefault(("prefill", window), (q, k, v, kw))
             else:
                 self.calls[("decode", k.shape[1])] = (q, k, v, kw)
@@ -2197,6 +2230,46 @@ def greedy_check(label, got: list, want: list, want_logits: list) -> dict:
     return {"first_difference": None}
 
 
+def device_kernels(fn) -> dict[str, float]:
+    """``fn()`` under ``torch.profiler``, synchronized: device seconds by
+    kernel name (lower case); empty when the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time_total", None)
+        us = evt.cuda_time_total if us is None else us
+        out[evt.key.lower()] = out.get(evt.key.lower(), 0.0) + us / 1e6
+    return out
+
+
+def is_matmul(name: str) -> bool:
+    return any(k in name for k in ("gemm", "xmma", "nvjet", "cutlass"))
+
+
+def lm_family(name: str) -> str:
+    if any(k in name for k in ("wgmma_kernel", "split_kernel", "combine_kernel", "fma_kernel")):
+        return "b5"
+    return "matmul" if is_matmul(name) else "other"
+
+
+def train_family(name: str) -> str:
+    """A training kernel's family by its name: fp32 products (``sgemm`` or
+    ``f32f32`` in cuBLAS's names: the attention under autograd, TF32 off),
+    the other products (bf16), softmax (attention and the loss chunks,
+    forward and backward), and the rest (elementwise, norms, AdamW)."""
+    if is_matmul(name):
+        return "matmul_fp32" if ("sgemm" in name or "f32f32" in name) else "matmul_bf16"
+    return "softmax" if "softmax" in name else "other"
+
+
 def lm_breakdown(cfg, n_req: int, prompt_len: int) -> dict:
     """Where Gemma 2B's serving time goes, warm: the model built again as
     the serve CLI builds it, one prefill and LM_DECODE_STEPS decode steps
@@ -2207,7 +2280,6 @@ def lm_breakdown(cfg, n_req: int, prompt_len: int) -> dict:
     device time."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.tokens import TokenStream
     from repro_torch.models.lm import model as lm
@@ -2244,22 +2316,9 @@ def lm_breakdown(cfg, n_req: int, prompt_len: int) -> dict:
                                 for i in range(4)], 4 * decode_s / LM_DECODE_STEPS)}
     notes = []
     for label, (fn, wall) in work.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
         families = {"b5": 0.0, "matmul": 0.0, "other": 0.0}
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(evt, "device_time_total", None)
-            us = evt.cuda_time_total if us is None else us
-            name = evt.key.lower()
-            family = ("b5" if any(k in name for k in ("wgmma_kernel", "split_kernel",
-                                                      "combine_kernel", "fma_kernel"))
-                      else "matmul" if any(k in name for k in ("gemm", "xmma", "nvjet",
-                                                               "cutlass"))
-                      else "other")
-            families[family] += us / 1e6
+        for name, sec in device_kernels(fn).items():
+            families[lm_family(name)] += sec
         device_s = sum(families.values())
         # Busy share: the profiled work's device time over the warm wall of
         # the same work (host clock, synchronized, profiler off).
@@ -2841,6 +2900,343 @@ def ssm_phase(peaks) -> dict:
     return out
 
 
+def encdec_phase(peaks) -> dict:
+    """The encoder-decoder at full size: SeamlessM4T-medium's prefill (the
+    encoder over the source frames, the decoder with cross-attention) and
+    greedy decode through ``launch/steps.py``, every attention on B5; B5
+    held to ref.py at each new shape; an fp32 smoke config against the CPU
+    route."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("seamless-m4t-medium")
+    b, se = ENCDEC_SRC
+    st, steps = ENCDEC_PROMPT, ENCDEC_DECODE_STEPS
+    phase(f"17. encoder-decoder: SeamlessM4T-medium full size ({cfg.encoder_layers} + "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} x {cfg.head_dim} heads, vocab "
+          f"{cfg.vocab}), bf16: {b} x {se} source frames, {b} x {st} target tokens, {steps} "
+          "decode steps")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = lm.init_params(cfg, generator=gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    src = torch.randn((b, se, cfg.d_model), generator=gen, device="cuda")
+    tokens = torch.as_tensor(TokenStream(vocab=cfg.vocab, seed=8).sample(
+        np.random.default_rng(9), b, st), device="cuda")
+    prefill_step = make_prefill_step(cfg, cache_size=st + steps)
+    serve_step = make_serve_step(cfg)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill_step(params, {"tokens": tokens, "src_embeds": src})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [logits]
+        for i in range(steps):
+            logits, caches = serve_step(params, torch.argmax(logits, -1)[:, None], caches, st + i)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return torch.stack(out), t1 - t0, time.perf_counter() - t1
+
+    (_, cold_prefill, cold_decode), _ = b5_counted(run)
+    with AttendRecorder(by_shape=True) as rec:
+        (logits, prefill_s, decode_s), counts = b5_counted(run)
+    want = {**dict.fromkeys(counts, 0), "wgmma": cfg.encoder_layers + 2 * cfg.n_layers,
+            "split": 2 * cfg.n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"SeamlessM4T: B5 launches by design {counts}, want {want}")
+    if logits.shape != (steps + 1, b, cfg.vocab_padded) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"SeamlessM4T logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    peak = torch.cuda.max_memory_allocated()
+    out: dict = {"launches": {"seamless": counts}}
+    out["seamless"] = dict(
+        parameters=n_params, batch=b, source=se, prompt=st, decode_steps=steps,
+        prefill_s=prefill_s, decode_s=decode_s, decode_ms_per_step=1e3 * decode_s / steps,
+        cold_prefill_s=cold_prefill, cold_decode_s=cold_decode, launches=counts,
+        max_memory_allocated=peak, memory_above_base=peak - base)
+    log(f"  SeamlessM4T-medium ({n_params / 1e9:.3f} B parameters): prefill {prefill_s:.4f} s "
+        f"(cold {cold_prefill:.4f}), decode {1e3 * decode_s / steps:.3f} ms per step (cold "
+        f"{1e3 * cold_decode / steps:.3f}); logits finite; max_memory_allocated "
+        f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the phase's start); B5 {counts}")
+    # The device's busy share: a prefill and 4 decode steps profiled, over
+    # the warm walls of the same work.
+    batch = {"tokens": tokens, "src_embeds": src}
+    first, caches = prefill_step(params, batch)
+    nxt = torch.argmax(first, -1)[:, None]
+    notes = []
+    for label, fn, wall in (
+            ("prefill", lambda: prefill_step(params, batch), prefill_s),
+            ("decode", lambda: [serve_step(params, nxt, caches, st + i) for i in range(4)],
+             4 * decode_s / steps)):
+        families = {"b5": 0.0, "matmul": 0.0, "other": 0.0}
+        for name, sec in device_kernels(fn).items():
+            families[lm_family(name)] += sec
+        device_s = sum(families.values())
+        out["seamless"][label + "_device_s"] = families if device_s > 0 else None
+        out["seamless"][label + "_busy_share"] = device_s / wall if device_s > 0 else None
+        notes.append(f"{label}{' (4 steps)' if label == 'decode' else ''} " + (
+            ", ".join(f"{k} {v:.4f}" for k, v in families.items())
+            + f" s on the device, busy {100 * device_s / wall:.1f}% of its warm wall"
+            if device_s > 0 else "no device time recorded"))
+    log(f"  profiled: {'; '.join(notes)}")
+    del params, logits, src, tokens, batch, first, caches
+    marks = {"seamless": time.perf_counter() - t_phase}
+
+    # An fp32 smoke config on the card against the CPU route: prefill and
+    # greedy decode, logits at 1e-4 and tokens equal.
+    small = dataclasses.replace(get_smoke("seamless-m4t-medium"), dtype="float32")
+    cpu_params = lm.init_params(small, generator=torch.Generator().manual_seed(SEED),
+                                device="cpu")
+    card_params = tree_map(lambda a: a.cuda(), cpu_params)
+    rng = np.random.default_rng(10)
+    toks = torch.from_numpy(rng.integers(0, small.vocab, (2, 20)))
+    src_s = torch.from_numpy(rng.standard_normal((2, 36, small.d_model)).astype(np.float32))
+    want_l, want_c = lm.prefill(cpu_params, {"tokens": toks, "src_embeds": src_s}, small,
+                                cache_size=32)
+    got_l, got_c = lm.prefill(card_params, {"tokens": toks.cuda(), "src_embeds": src_s.cuda()},
+                              small, cache_size=32)
+    small_err = 0.0
+    for step in range(8):
+        small_err = max(small_err, float((got_l.cpu() - want_l).abs().max()))
+        torch.testing.assert_close(got_l.cpu(), want_l, atol=1e-4, rtol=1e-4)
+        nxt = torch.argmax(want_l[:, : small.vocab], -1)[:, None]
+        if not torch.equal(torch.argmax(got_l[:, : small.vocab], -1)[:, None].cpu(), nxt):
+            raise AssertionError(f"seamless smoke fp32: greedy tokens differ at step {step}")
+        want_l, want_c = lm.decode_step(cpu_params, nxt, want_c, 20 + step, small)
+        got_l, got_c = lm.decode_step(card_params, nxt.cuda(), got_c, 20 + step, small)
+    out["small_max_abs_err"] = small_err
+    marks["small"] = time.perf_counter() - t_phase
+    log(f"  seamless smoke, fp32, 36 source frames, prompt 20 + 8 decode steps: card within "
+        f"1e-4 of the CPU route (max abs err {small_err:.3g}), tokens equal")
+
+    # B5 at the path's new shapes (head dim 64, no GQA), against ref.py.
+    torch.cuda.empty_cache()
+    calls = rec.calls
+    plan = [("seamless_encoder", calls[(se, se, False)], sdpa_library, True),
+            ("seamless_self_prefill", calls[(st, st, True)], sdpa_library, False),
+            ("seamless_cross_prefill", calls[(st, se, False)], sdpa_library, True),
+            ("seamless_cross_decode", calls[(1, se, False)], sdpa_library, True),
+            ("seamless_self_decode", calls[(1, st + steps, False)], sdpa_library, True)]
+    del calls, rec
+    out["shapes"] = {}
+    for label, call, library, time_it in plan:
+        out["shapes"][label] = lm_shape_row(label, call, peaks, library, time_it)
+        torch.cuda.empty_cache()
+    del plan
+    out["launches_total"] = sum(sum(c.values()) for c in out["launches"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_at"] = marks
+    log(f"  phase 17: {out['seconds']:.1f} s (at the end of each step: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())}); B5 launched "
+        f"{out['launches_total']} times on this path")
+    return out
+
+
+class TrainRecorder:
+    """While installed, times each step of the train CLI's ``main`` (host
+    clock, synchronized before and after) and the AdamW update inside it
+    (synchronized before and after), and keeps the last step's parameters."""
+
+    def __init__(self):
+        from repro_torch.launch import steps, train
+
+        self.steps_mod, self.train_mod = steps, train
+        self.make, self.update = train.make_train_step, steps.adamw_update
+        self.walls, self.updates, self.params = [], [], None
+
+    def __enter__(self):
+        import torch
+
+        def update(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.update(*args, **kw)
+            torch.cuda.synchronize()
+            self.updates.append(time.perf_counter() - t0)
+            return out
+
+        def make(cfg, **kw):
+            step_fn = self.make(cfg, **kw)
+
+            def step(params, opt_state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                self.walls.append(time.perf_counter() - t0)
+                self.params = out[0]
+                return out
+
+            return step
+
+        self.train_mod.make_train_step, self.steps_mod.adamw_update = make, update
+        return self
+
+    def __exit__(self, *exc):
+        self.train_mod.make_train_step, self.steps_mod.adamw_update = self.make, self.update
+
+
+def train_phase() -> dict:
+    """Training on the card: Gemma 2B at full size through the train CLI's
+    ``main`` (attention on the plain torch route under autograd: no B5
+    launch), then an eval prefill of the trained parameters on B5; the fp32
+    smoke config's loss and gradients against the CPU route, and a
+    checkpoint round trip from card tensors."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data.tokens import TokenStream, batches
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg = get_config("gemma-2b")
+    b, s = TRAIN_SHAPE
+    args = ["--arch", "gemma-2b", "--batch", str(b), "--seq", str(s), "--steps",
+            str(TRAIN_STEPS), "--log-every", "1"]
+    phase(f"18. training: Gemma 2B full size ({cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab}), bf16 with fp32 AdamW moments, through the train CLI: {b} x {s} tokens, "
+          f"{TRAIN_STEPS} steps")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TrainRecorder() as rec:
+        losses, counts = b5_counted(lambda: train.main(args))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"training launched B5 {counts}: it has no backward pass")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"Gemma 2B training losses {losses}")
+    n_params = sum(t.numel() for t in tree_leaves(rec.params))
+    fwd_bwd = [w - u for w, u in zip(rec.walls, rec.updates)]
+    out: dict = {"gemma_2b": dict(
+        parameters=n_params, batch=b, seq=s, losses=losses, step_s=rec.walls,
+        forward_backward_s=fwd_bwd, adamw_s=rec.updates,
+        tokens_per_s=[b * s / w for w in rec.walls], wall_s=wall, launches=counts,
+        max_memory_allocated=peak, memory_above_base=peak - base)}
+    log(f"  Gemma 2B ({n_params / 1e9:.3f} B parameters, {wall:.1f} s with init): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (ln {cfg.vocab} = {math.log(cfg.vocab):.4f}); "
+        f"max_memory_allocated {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the "
+        f"phase's start); B5 {counts}")
+    for i, (w, fb, u) in enumerate(zip(rec.walls, fwd_bwd, rec.updates)):
+        log(f"  step {i + 1}{' (cold)' if i == 0 else ''}: {w:.4f} s ({b * s / w:.0f} tokens/s): "
+            f"forward + backward {fb:.4f} s, AdamW {u:.4f} s")
+
+    # Where a warm step's device time goes: one more step of the trained
+    # parameters (a fresh AdamW state, the CLI's first batch) profiled.
+    batch = next(batches(TokenStream(vocab=cfg.vocab, seed=0), batch=b, seq=s, steps=1))
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    step = make_train_step(cfg)
+    opt = init_adamw(rec.params)
+    kernels = device_kernels(lambda: step(rec.params, opt, batch))
+    del opt, batch
+    torch.cuda.empty_cache()
+    families = {"matmul_bf16": 0.0, "matmul_fp32": 0.0, "softmax": 0.0, "other": 0.0}
+    for name, sec in kernels.items():
+        families[train_family(name)] += sec
+    device_s = sum(families.values())
+    warm = statistics.median(rec.walls[1:])
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    out["gemma_2b"].update(device_s=families if device_s > 0 else None,
+                           busy_share=device_s / warm if device_s > 0 else None,
+                           top_kernels=top)
+    log("  profiled warm step: " + (
+        ", ".join(f"{k} {v:.4f}" for k, v in families.items())
+        + f" s on the device, busy {100 * device_s / warm:.1f}% of the warm step's "
+        f"{warm:.4f} s; top kernels: "
+        + "; ".join(f"{name[:60]} {sec:.4f}" for name, sec in top[:5])
+        if device_s > 0 else "no device time recorded"))
+
+    # The trained parameters served: an eval prefill on B5.
+    gen = np.random.default_rng(11)
+    eb, es = TRAIN_EVAL_PREFILL
+    toks = torch.as_tensor(gen.integers(0, cfg.vocab, (eb, es)), device="cuda")
+    (logits, _), counts = b5_counted(lambda: lm.prefill(rec.params, {"tokens": toks}, cfg))
+    if counts != {**dict.fromkeys(counts, 0), "wgmma": cfg.n_layers}:
+        raise AssertionError(f"eval prefill of the trained Gemma 2B: B5 {counts}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("eval prefill of the trained Gemma 2B: logits not finite")
+    out["launches"] = {"eval_prefill": counts}
+    log(f"  eval prefill of the trained parameters, {eb} x {es}: logits finite, B5 {counts}")
+    del rec, logits, toks
+    torch.cuda.empty_cache()
+    marks = {"gemma_2b": time.perf_counter() - t_phase}
+
+    # The fp32 smoke config: loss and gradients on the card against the CPU
+    # route (no B5 launch), then one step and a checkpoint round trip.
+    small = dataclasses.replace(get_smoke("gemma-2b"), dtype="float32")
+    cpu_params = lm.init_params(small, generator=torch.Generator().manual_seed(SEED),
+                                device="cpu")
+    card_params = tree_map(lambda a: a.cuda(), cpu_params)
+    toks = np.random.default_rng(12).integers(0, small.vocab, (2, 65))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+
+    def loss_and_grads(params, device):
+        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = lm.train_loss(tracked, {k: v.to(device) for k, v in batch.items()}, small)
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(tracked))
+
+    want, want_g = loss_and_grads(cpu_params, "cpu")
+    (got, got_g), counts = b5_counted(lambda: loss_and_grads(card_params, "cuda"))
+    if any(counts.values()):
+        raise AssertionError(f"smoke train_loss launched B5 {counts}")
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    grad_err = 0.0
+    for g, w in zip(got_g, want_g, strict=True):
+        scale = float(w.abs().max())
+        grad_err = max(grad_err, float((g.cpu() - w).abs().max()) / max(scale, 1e-30))
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * scale)
+    params, opt, _ = make_train_step(small, base_lr=1e-2)(card_params, init_adamw(card_params),
+                                                          {k: v.cuda() for k, v in batch.items()})
+    path = ROOT / "build" / "chip_smoke_checkpoint.npz"
+    path.parent.mkdir(exist_ok=True)
+    tree = {"params": params, "opt": opt}
+    save_checkpoint(str(path), tree)
+    back = load_checkpoint(str(path), tree_unflatten(tree, [torch.empty_like(t) for t in
+                                                            tree_leaves(tree)]))
+    path.unlink()
+    for a, c in zip(tree_leaves(tree), tree_leaves(back), strict=True):
+        if not (c.is_cuda and a.dtype == c.dtype and torch.equal(a, c)):
+            raise AssertionError("checkpoint round trip from card tensors changed a leaf")
+    out["small"] = dict(loss=float(got), loss_cpu=float(want),
+                        loss_abs_err=float((got.cpu() - want).abs()),
+                        grad_max_err_over_leaf_max=grad_err)
+    marks["small"] = time.perf_counter() - t_phase
+    log(f"  gemma-2b smoke, fp32, 2 x 64 tokens: loss {float(got):.6f} on the card against "
+        f"{float(want):.6f} on the CPU, gradients within {grad_err:.3g} of each leaf's largest "
+        f"|g|, no B5 launch; one step's {len(tree_leaves(tree))} leaves through a checkpoint, "
+        "bit for bit")
+    out["launches_total"] = sum(sum(c.values()) for c in out["launches"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds_at"] = marks
+    log(f"  phase 18: {out['seconds']:.1f} s (at the end of each step: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in marks.items())})")
+    return out
+
+
 def cli_phase() -> dict:
     from repro_torch.core.faults import FaultPlan, FaultRule
 
@@ -2954,6 +3350,8 @@ def main() -> int:
     del serving["outputs"]
     lm = lm_phase(peaks)
     ssm = ssm_phase(peaks)
+    encdec = encdec_phase(peaks)
+    training = train_phase()
     # Launches on the paths: the nine routes, the baselines', the
     # layer-wise, the serving, refresh and sharded runs, each counted from
     # 0 just before it.
@@ -2989,11 +3387,12 @@ def main() -> int:
          "library_ms": seg_row["library_ms"]},
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
-        # launches: the ops path's and phases 15 and 16's LM serving runs.
+        # launches: the ops path's, phases 15-17's LM serving runs and phase
+        # 18's eval prefill (its training steps launch none).
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
          "replaces": REPLACES["flash_attention"],
          "launches": ops_launches["flash_attention"] + lm["launches_total"]
-         + ssm["launches_total"],
+         + ssm["launches_total"] + encdec["launches_total"] + training["launches_total"],
          "max_abs_err": att_err, "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
          "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
          "library_ms": prefill["library_ms"]},
@@ -3004,7 +3403,7 @@ def main() -> int:
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
-        "lm": lm, "ssm": ssm,
+        "lm": lm, "ssm": ssm, "encdec": encdec, "training": training,
         "cli": cli, "path_launches": path_launches,
         "serve_launches": serve_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,

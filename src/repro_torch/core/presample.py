@@ -32,7 +32,9 @@ import torch
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.features import plain_feature_store
 from repro_torch.graph.sampling import add_visits, device_graph, sample_blocks
-from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
+# A module import: runtime.pipeline imports core.trace, which runs this
+# package's __init__ (and so this module) first when pipeline is imported alone.
+from repro_torch.runtime import pipeline
 from repro_torch.utils.timing import StageClock, block_until_ready
 
 __all__ = ["PresampleStats", "merge_stats", "run_presampling"]
@@ -125,10 +127,10 @@ def run_presampling(
         peak["bytes"] = max(peak["bytes"], batch_bytes)
 
     clock = StageClock(overlap=pipeline_depth > 1)
-    executor = PipelinedExecutor(
+    executor = pipeline.PipelinedExecutor(
         [
-            Stage("sample", sample_stage, lambda c: c.outputs["sample"].frontiers[-1]),
-            Stage("feature", feature_stage, lambda c: c.outputs["feature"]),
+            pipeline.Stage("sample", sample_stage, lambda c: c.outputs["sample"].frontiers[-1]),
+            pipeline.Stage("feature", feature_stage, lambda c: c.outputs["feature"]),
         ],
         depth=pipeline_depth,
         clock=clock,

@@ -13,15 +13,16 @@ GQA attention goes through one routing function, :func:`_attend`, on
 flash-attention kernel (``kernels/flash_attention``, B5), transposing to
 ``[B, H, S, D]`` and back; it launches or raises.  On a CPU tensor it is
 the port of the reference's ``_chunked_scores_softmax``: q and k upcast
-to fp32, fp32 scores and softmax, the output cast to q's dtype.  Prefill
-and cross-attention always take it.  Decode takes it when ``cache_len``
-is one host integer (every slot at the same position, as the serve CLI
-decodes): the ring slots the mask keeps are then a contiguous
-slice of an unwrapped ring, or the whole ring once it has wrapped, and
-keys are already rotated, so attention over those slots without a mask
-is the masked attention.  A per-slot ``cache_len`` vector (the batched
-server) keeps the reference's inline masked einsum: B5 has no per-row kv
-length.
+to fp32, fp32 scores and softmax, the output cast to q's dtype; so is it
+on the card under autograd (training), as B5 has no backward pass.
+Prefill and cross-attention always go through ``_attend``.  Decode
+takes it when ``cache_len`` is one host integer (every slot at the same
+position, as the serve CLI decodes): the ring slots the mask keeps are
+then a contiguous slice of an unwrapped ring, or the whole ring once it
+has wrapped, and keys are already rotated, so attention over those slots
+without a mask is the masked attention.  A per-slot ``cache_len`` vector
+(the batched server) keeps the reference's inline masked einsum: B5 has
+no per-row kv length.
 
 MLA (DeepSeek-V2) caches the *compressed* (c_kv, k_rope) pair; its q·k
 width differs from its v width, and it stays in plain torch on every
@@ -124,8 +125,13 @@ def _chunked_scores_softmax(q, k, v, *, q_offset, kv_valid_len, window, softcap,
 def _attend(q, k, v, *, causal: bool, window: int | None, softcap: float | None):
     """GQA attention, q ``[B, S, H, D]`` against k, v ``[B, Sk, Hkv, D]``,
     masks aligned at position 0.  CUDA: B5 (launches or raises); CPU: the
-    plain fp32 version."""
-    if q.is_cuda:
+    plain fp32 version.  Under autograd (grad mode on and q, k or v
+    requiring grad) the plain version on every device: B5 has no backward
+    pass, and the reference differentiates its XLA attention, not its
+    Pallas kernel."""
+    differentiated = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                                  or v.requires_grad)
+    if q.is_cuda and not differentiated:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               causal=causal, window=window, softcap=softcap)
         return out.transpose(1, 2)

@@ -35,6 +35,7 @@ __all__ = [
     "moe_capacity",
     "set_shard_map_context",
     "silu",
+    "top_k",
 ]
 
 
@@ -95,6 +96,14 @@ def dense_ffn(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
 # -------------------------------------------------------------------- MoE
 
 
+def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last dim: the ``k`` largest values, and their
+    indices, with equal values taken lowest index first (``torch.topk``
+    leaves that order unspecified).  Values carry their gradient."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
 def moe_capacity(num_tokens: int, cfg: LMConfig) -> int:
     m = cfg.moe
     c = int(num_tokens * m.top_k * m.capacity_factor / m.n_experts)
@@ -128,7 +137,7 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: LMConfig) -> tuple[torch.Tensor,
 
     xf = x.reshape(t, d)
     probs = torch.softmax(xf.float() @ params["router"], dim=-1)  # [T, E]
-    gate_vals, expert_idx = torch.topk(probs, k)  # [T, k]
+    gate_vals, expert_idx = top_k(probs, k)  # [T, k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e

@@ -6,8 +6,9 @@ it with an optimization barrier.  On one device both are plain: the
 row-parallel matmul is ``h @ w`` and the barrier is the identity.  Setting
 a mesh raises: sharded LM execution comes with the dry-runs (ROADMAP
 A-item 19).  ``set_rwkv_chunked(True)`` routes RWKV-6 prefill to the
-chunked WKV6 (``blocks.block_prefill``); the remat flag keeps its setter
-and getter for training (A-item 18.4).
+chunked WKV6 (``blocks.block_prefill``).  ``train_loss`` rematerialises
+whole repeats and raises for a named remat policy (the dry-run's
+``"dots"``, ROADMAP A-item 19).
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ import torch
 from repro_torch.core.allocation import CacheAllocation, allocate_capacity
 from repro_torch.graph.features import FeatureStore, build_feature_cache
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.moe import top_k
 
 __all__ = ["ServingCaches", "profile_and_allocate", "build_serving_caches", "router_top_k"]
 
@@ -95,7 +96,7 @@ def router_top_k(cfg: LMConfig, params: dict, tokens: np.ndarray) -> np.ndarray 
         return None
     ids = torch.as_tensor(np.asarray(tokens), device=params["embed"].device).long()
     logits = params["embed"][ids].float() @ router
-    return torch.topk(logits, cfg.moe.top_k).indices.cpu().numpy()
+    return top_k(logits, cfg.moe.top_k)[1].cpu().numpy()
 
 
 def profile_and_allocate(
@@ -125,7 +126,7 @@ def profile_and_allocate(
         np.add.at(token_counts, np.asarray(req), 1)
         if router is not None:
             t0 = time.perf_counter()
-            top = torch.topk(rows.float() @ router, cfg.moe.top_k).indices
+            top = top_k(rows.float() @ router, cfg.moe.top_k)[1]
             _sync(top)
             t_expert.append(time.perf_counter() - t0)
             np.add.at(expert_counts, top.cpu().numpy().reshape(-1), 1)

@@ -1012,3 +1012,76 @@ def test_lm_jamba_launches_b5_once_per_prefill_and_decode_step_in_bfloat16(cuda)
             params, torch.argmax(logits, -1)[:, None], caches, 40 + step, cfg))
         assert counts == {**dict.fromkeys(fa.DESIGNS, 0), "split": 1}
     assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("n_experts,k", [(4, 2), (16, 2), (160, 6)])
+def test_router_top_k_keeps_the_lowest_index_first_on_the_card(cuda, n_experts, k):
+    """The card's stable sort breaks ties as ``lax.top_k`` does (the CPU
+    tests hold ``moe.top_k`` to it): equal values lowest index first, on
+    rows of all-equal and of many-tied probabilities; and ``moe_ffn`` with
+    a zeroed router gives the CPU route's output."""
+    rng = np.random.default_rng(n_experts)
+    x = rng.integers(0, 3, (4096, n_experts)).astype(np.float32)
+    x[:7] = 1.0
+    probs = torch.softmax(torch.from_numpy(x), -1)
+    want_vals, want_idx = lm_moe.top_k(probs, k)
+    got_vals, got_idx = lm_moe.top_k(probs.to(cuda), k)
+    assert torch.equal(got_idx.cpu(), want_idx) and torch.equal(got_vals.cpu(), want_vals)
+    assert torch.equal(want_idx[:7], torch.arange(k).expand(7, k))
+    cfg = dataclasses.replace(get_smoke("phi3.5-moe-42b-a6.6b"), dtype="float32")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=n_experts, top_k=k))
+    params = lm_moe.init_moe_params(torch.Generator().manual_seed(19), cfg, torch.float32,
+                                    device="cpu")
+    params["router"].zero_()
+    h = torch.randn((2, 33, cfg.d_model), generator=torch.Generator().manual_seed(20))
+    want, want_aux = lm_moe.moe_ffn(params, h, cfg)
+    got, got_aux = lm_moe.moe_ffn(tree_map(lambda a: a.to(cuda), params), h.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,design", [
+    (4, 16, 1024, 1024, "wgmma"),  # encoder self-attention, non-causal
+    (4, 16, 256, 1024, "wgmma"),  # decoder cross-attention at prefill
+    (4, 16, 1, 1024, "split"),  # cross-attention at decode
+    (4, 16, 1, 272, "split"),  # self-attention at decode
+])
+def test_flash_attention_at_the_seamless_shapes(cuda, b, h, sq, sk, design):
+    """SeamlessM4T-medium's attention (head dim 64, 16 heads, no GQA) at
+    chip_smoke.py phase 17's shapes, non-causal: B5 in bfloat16 against
+    ref.py (and ref.py in float32 for the tensor-core design)."""
+    q, k, v = _qkv(cuda, b, h, h, sq, sk, 64, torch.bfloat16, seed=sq + sk)
+    _check_attention(q, k, v, design=design, causal=False)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "seamless-m4t-medium", "jamba-v0.1-52b"])
+def test_lm_train_loss_on_the_card_launches_no_b5_and_matches_the_cpu(cuda, arch):
+    """Under autograd ``_attend`` takes the plain route on the card (B5 has
+    no backward): no B5 launch in the loss or its backward; the float32
+    loss and every gradient leaf at 1e-4 of the CPU route (gradients at
+    1e-4 of each leaf's largest |g|); an eval prefill of the same
+    parameters then launches B5 again."""
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    cpu_params, card_params = _lm_params(cfg, cuda, seed=2)
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab, (2, 25))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    if cfg.encoder_layers:
+        batch["src_embeds"] = torch.from_numpy(rng.standard_normal((2, 30, cfg.d_model))).float()
+
+    def loss_and_grads(params, device):
+        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = lm_model.train_loss(tracked, {k: v.to(device) for k, v in batch.items()}, cfg)
+        return loss, torch.autograd.grad(loss, tree_leaves(tracked))
+
+    want, want_g = loss_and_grads(cpu_params, "cpu")
+    (got, got_g), counts = _b5_counts(lambda: loss_and_grads(card_params, cuda))
+    assert not any(counts.values()), counts
+    torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-4, rtol=1e-4)
+    for g, w in zip(got_g, want_g, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    eval_batch = {k: v.to(cuda) for k, v in batch.items() if k != "labels"}
+    _, counts = _b5_counts(lambda: lm_model.prefill(card_params, eval_batch, cfg))
+    assert sum(counts.values()) >= 1

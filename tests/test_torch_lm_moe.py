@@ -157,3 +157,56 @@ def test_shard_map_context_raises_for_a_mesh_naming_the_roadmap_item():
     TMoE.set_shard_map_context(None)
     with pytest.raises(NotImplementedError, match="A-item 19"):
         TMoE.set_shard_map_context(object(), ("data",), "model")
+
+
+def _tied_router(router: np.ndarray, case: str) -> np.ndarray:
+    """``zeroed``: every expert ties.  ``tied_columns``: expert 0 apart and
+    experts 1.. sharing one column, so each token's k-th and (k+1)-th
+    choices tie; entries are multiples of 1/8 and the inputs multiples of
+    1/2, so every logit is exact and the tied ones are equal bits."""
+    if case == "zeroed":
+        return np.zeros_like(router)
+    cols = np.random.default_rng(4).integers(-2, 3, (router.shape[0], 2)) / 8.0
+    out = np.empty_like(router)
+    out[:, 0] = cols[:, 0]
+    out[:, 1:] = cols[:, 1:]
+    return out
+
+
+@pytest.mark.parametrize("case", ["zeroed", "tied_columns"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tied_router_probabilities_pick_the_reference_experts(arch, case):
+    """``lax.top_k`` takes equal values lowest index first; so must the
+    port (``torch.topk`` leaves that order unspecified), or tied tokens go
+    to other experts and the output differs."""
+    jcfg, cfg = _cfgs(arch)
+    jp, tp = _params(jcfg, seed=6)
+    router = _tied_router(np.asarray(jp["router"]), case)
+    jp = dict(jp, router=jnp.asarray(router))
+    tp = dict(tp, router=torch.from_numpy(router))
+    x = (np.round(2 * np.random.default_rng(5).standard_normal((2, 5, cfg.d_model))) / 2).astype(
+        np.float32)
+    tout, taux, jout, jaux = _run(jp, tp, jcfg, cfg, x)
+    _close(tout, jout, TOL)
+    _close(taux, jaux, TOL)
+    probs = torch.softmax(torch.from_numpy(x).reshape(10, -1) @ tp["router"], -1)
+    vals, idx = TMoE.top_k(probs, cfg.moe.top_k)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(probs.numpy()), cfg.moe.top_k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+
+
+@pytest.mark.parametrize("n_experts,k", [(4, 2), (16, 2), (160, 6)])
+def test_top_k_breaks_ties_lowest_index_first_and_passes_the_gradient(n_experts, k):
+    rng = np.random.default_rng(n_experts)
+    x = rng.integers(0, 3, (64, n_experts)).astype(np.float32)  # many ties
+    x[0] = 1.0  # one row all tied
+    t = torch.from_numpy(x).requires_grad_()
+    vals, idx = TMoE.top_k(t, k)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.detach().numpy(), np.asarray(jvals))
+    (g,) = torch.autograd.grad((vals * torch.arange(1.0, k + 1)).sum(), t)
+    want = np.zeros_like(x)
+    np.put_along_axis(want, np.asarray(jidx), np.arange(1.0, k + 1)[None], axis=-1)
+    np.testing.assert_array_equal(g.numpy(), want)

@@ -182,6 +182,26 @@ def test_moe_serving_caches_match_the_reference(arch, monkeypatch):
                                   np.sort(want_top, -1))
 
 
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "jamba-v0.1-52b"])
+def test_profile_counts_the_reference_experts_at_tied_logits(arch, monkeypatch):
+    """Zeroed routers tie every expert: ``lax.top_k`` counts experts 0..k-1
+    for every token, and the port's profile and ``router_top_k`` must too."""
+    jcfg, jp, cfg, tp = _pair(arch)
+    zero = lambda tree: tuple(dict(b, moe=dict(b["moe"], router=b["moe"]["router"] * 0))
+                              if "moe" in b else b for b in tree)
+    jp, tp = dict(jp, blocks=zero(jp["blocks"])), dict(tp, blocks=zero(tp["blocks"]))
+    sample = TokenStream(vocab=cfg.vocab, seed=1).sample(np.random.default_rng(3), 4, 12)
+    monkeypatch.setattr(TC, "time", _Clock())
+    monkeypatch.setattr(JC, "time", _Clock())
+    got = TC.profile_and_allocate(cfg, tp, sample, total_cache_bytes=10**6)[2]
+    want = JC.profile_and_allocate(jcfg, jp, sample, total_cache_bytes=10**6)[2]
+    np.testing.assert_array_equal(got, want)
+    k = cfg.moe.top_k
+    assert got[:k].tolist() == [sample.size] * k and not got[k:].any()
+    np.testing.assert_array_equal(TC.router_top_k(cfg, tp, sample),
+                                  np.broadcast_to(np.arange(k), sample.shape + (k,)))
+
+
 def test_token_stream_gives_the_reference_tokens():
     for vocab, seed in ((512, 1), (49155, 3)):
         got = TokenStream(vocab=vocab, seed=seed).sample(np.random.default_rng(seed + 1), 3, 40)
