@@ -190,7 +190,26 @@ whose errors is caught:
    autograd takes the plain route), then an eval prefill of the trained
    parameters on B5 (18 ``wgmma``); the fp32 smoke config's loss and
    gradients on the card against the CPU route at 1e-4, and one step's
-   parameters and AdamW state through a checkpoint, bit for bit.
+   parameters and AdamW state through a checkpoint, bit for bit;
+19. the dry-run against the card: Gemma 2B at full size on a 1 x 1 mesh,
+   three steps (phase 15's prefill of 8 x 2048 and its decode of 8 slots
+   at a 2080-token cache, phase 18's training step of 4 x 2048), each
+   counted on meta tensors by ``launch.dryrun.dryrun_one`` and then
+   materialized on the card from a seeded card generator: the card
+   tensors' bytes must equal the record's parameter and argument bytes;
+   each step timed (CUDA events, warm, mean of 5, training of 3) beside
+   its bound at the published H100 peaks (FLOPs over the bf16 peak, dot
+   bytes over HBM3's rate; the attention counted on the plain route,
+   which scores the masked half of a causal matrix that B5 skips), with
+   B5's launches (18 ``wgmma`` per prefill, 18 ``split`` per decode step,
+   none in training); ``remat_dots`` training against whole remat from
+   the same parameters and batch (three chained steps each, losses and
+   a gradient norm within 1e-5 relative, step times and peaks; at 2 x
+   2048 if 4 x 2048 runs out of memory); the expert-parallel MoE on a 1
+   x 1 mesh against the dense MoE at Jamba's full width (fp32, 4 x 1024
+   tokens, 1e-5); and an NCCL world of one process through
+   ``launch/distributed.py`` (an ``all_reduce`` leaves its tensor as it
+   was; the production topology check names one device).
 
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
@@ -291,6 +310,8 @@ ENCDEC_DECODE_STEPS = 16
 TRAIN_SHAPE = (4, 2048)
 TRAIN_STEPS = 4
 TRAIN_EVAL_PREFILL = (1, 512)
+# Phase 19: chained training steps under each remat policy.
+REMAT_STEPS = 3
 SEG_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 ATT_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # The bfloat16 kernel against ref.py computed in float32 from the same
@@ -3237,6 +3258,251 @@ def train_phase() -> dict:
     return out
 
 
+def tree_nbytes(tree) -> int:
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def remat_compare(cfg, b: int, s: int) -> dict:
+    """Gemma 2B training under whole-repeat remat and under ``"dots"``, each
+    from the same parameters (drawn again from one seed, so no second copy
+    lives beside the run), fresh moments and the same batch: REMAT_STEPS
+    chained steps (their losses and times, ``max_memory_allocated``
+    reset before them: the AdamW update's old and new trees set it), then
+    one more loss and gradient pass alone (its peak, which the policy
+    moves, and the gradient norm)."""
+    import torch
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.specs import abstract_train_inputs, concrete_from_abstract
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm import tp
+    from repro_torch.optim.adamw import init_adamw
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    abstract, _, batch = abstract_train_inputs(cfg, InputShape(f"train_{b}x{s}", s, b, "train"))
+    batch = concrete_from_abstract(batch, seed=SEED + 1, device="cuda")
+    step = make_train_step(cfg)
+    out = {"batch": b, "seq": s}
+    for policy in (None, "dots"):
+        tp.set_remat_policy(policy)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            p = concrete_from_abstract(abstract, seed=SEED, device="cuda")
+            o = init_adamw(p)
+            losses, walls = [], []
+            for _ in range(REMAT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, o, loss = step(p, o, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            step_peak = torch.cuda.max_memory_allocated()
+            del p, o
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = concrete_from_abstract(abstract, seed=SEED, device="cuda")
+            tracked = tree_map(lambda t: t.detach().requires_grad_(), params)
+            grads = torch.autograd.grad(lm.train_loss(tracked, batch, cfg), tree_leaves(tracked))
+            norm = float(torch.sqrt(sum(g.float().pow(2).sum() for g in grads)))
+            grad_peak = torch.cuda.max_memory_allocated()
+            del params, tracked, grads
+        finally:
+            tp.set_remat_policy(None)
+        out[policy or "whole"] = dict(losses=losses, step_s=walls, grad_norm=norm,
+                                      max_memory_allocated=step_peak,
+                                      grad_pass_max_memory_allocated=grad_peak)
+    whole, dots = out["whole"], out["dots"]
+    for a, c in zip(whole["losses"] + [whole["grad_norm"]], dots["losses"] + [dots["grad_norm"]],
+                    strict=True):
+        if not abs(a - c) <= 1e-5 * abs(a):
+            raise AssertionError(f"remat_dots {dots} against whole remat {whole}: not within 1e-5")
+    return out
+
+
+def dryrun_phase() -> dict:
+    """Gemma 2B at full size on a 1 x 1 mesh: the dry-run's record of three
+    steps (counted on meta tensors) against the card.  For each step the
+    same inputs materialized on the card from a seeded card generator
+    must hold the record's parameter and argument bytes exactly; the step
+    is timed and set against its counted bound at the published H100
+    peaks (``launch.mesh.HW``), and its B5 launches are counted.  Then
+    ``remat_dots`` training against whole remat, the expert-parallel MoE
+    on a 1 x 1 mesh against the dense MoE at Jamba's full width, and an
+    NCCL world of one process through ``launch/distributed.py``."""
+    import dataclasses
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import distributed, dryrun
+    from repro_torch.launch.mesh import HW, AbstractMesh
+    from repro_torch.launch.specs import concrete_from_abstract
+    from repro_torch.models.lm import moe
+    from repro_torch.optim.adamw import init_adamw
+
+    cfg = get_config("gemma-2b")
+    mesh = AbstractMesh(("data", "model"), (1, 1))
+    phase(f"19. the dry-run against the card: Gemma 2B full size ({cfg.n_layers} layers, bf16) "
+          f"on a {mesh.label()} mesh; bounds at the published peaks {HW['peak_flops_bf16']:.4g} "
+          f"FLOP/s and {HW['hbm_bw']:.4g} B/s")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    b, s = LM_PREFILL
+    shapes = [InputShape(f"prefill_{b}x{s}", s, b, "prefill"),
+              InputShape(f"decode_{b}x{s + LM_DECODE_STEPS}", s + LM_DECODE_STEPS, b, "decode"),
+              InputShape(f"train_{TRAIN_SHAPE[0]}x{TRAIN_SHAPE[1]}", TRAIN_SHAPE[1],
+                         TRAIN_SHAPE[0], "train")]
+    out: dict = {"steps": {}, "launches": {}}
+    for shape in shapes:
+        rec = dryrun.dryrun_one("gemma-2b", shape, mesh=mesh, verbose=False)
+        fn, args, _ = dryrun.build_lowerable("gemma-2b", shape, mesh)
+        dryrun.reset_switches()
+        if shape.kind == "train":  # AdamW's moments start at zero (random ones go negative)
+            params = concrete_from_abstract(args[0], seed=SEED, device="cuda")
+            args = (params, init_adamw(params),
+                    concrete_from_abstract(args[2], seed=SEED + 1, device="cuda"))
+        else:
+            args = concrete_from_abstract(args, seed=SEED, device="cuda")
+        h, ma = rec["hlo"], rec["memory_analysis"]
+        got = {"parameter_bytes": tree_nbytes(args[0]), "argument_bytes": tree_nbytes(list(args))}
+        if (got["parameter_bytes"], got["argument_bytes"]) != (
+                h["parameter_bytes_per_device"], ma["argument_size_in_bytes"]):
+            raise AssertionError(f"{shape.name}: card bytes {got} against the record's "
+                                 f"{h['parameter_bytes_per_device']} and "
+                                 f"{ma['argument_size_in_bytes']}")
+        if shape.kind == "decode":  # every slot at the last position: B5's split route
+            call = lambda: fn(args[0], args[1], args[2], shape.seq_len - 1)  # noqa: E731
+        else:
+            call = lambda: fn(*args)  # noqa: E731
+        result, counts = b5_counted(call)
+        want = {"prefill": "wgmma", "decode": "split"}.get(shape.kind)
+        expect = {**dict.fromkeys(counts, 0), **({want: cfg.n_layers} if want else {})}
+        if counts != expect:
+            raise AssertionError(f"{shape.name}: B5 {counts}, expected {expect}")
+        first = result[-1] if shape.kind == "train" else result[0]
+        if not bool(torch.isfinite(first).all()):
+            raise AssertionError(f"{shape.name}: output not finite")
+        del result, first
+        torch.cuda.reset_peak_memory_stats()
+        seconds = cuda_ms(call, 3 if shape.kind == "train" else 5) / 1e3
+        compute_s = h["flops_per_device"] / HW["peak_flops_bf16"]
+        memory_s = h["dot_bytes_per_device"] / HW["hbm_bw"]
+        bound = max(compute_s, memory_s)
+        row = dict(flops=h["flops_per_device"], dot_bytes=h["dot_bytes_per_device"],
+                   parameter_bytes=got["parameter_bytes"], argument_bytes=got["argument_bytes"],
+                   output_bytes=ma["output_size_in_bytes"], count_s=rec["compile_s"],
+                   measured_s=seconds, compute_s=compute_s, memory_s=memory_s, bound_s=bound,
+                   bound_by="operations" if compute_s >= memory_s else "bytes",
+                   measured_over_bound=seconds / bound,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        if shape.kind == "decode":  # host-bound? the device's busy share of a warm step
+            row["busy"] = decode_busy((args[0], args[1], args[2], shape.seq_len - 1, cfg))
+        out["steps"][shape.name] = row
+        out["launches"][shape.name] = counts
+        log(f"  {shape.name}: {row['flops']:.4e} FLOPs, {row['dot_bytes']:.4e} dot bytes "
+            f"(counted on meta in {rec['compile_s']:.2f} s; attention on the plain route's "
+            "count, which includes the masked half of a causal score matrix that B5 skips); "
+            f"card bytes = record: parameters {got['parameter_bytes']}, arguments "
+            f"{got['argument_bytes']}; measured {seconds:.5f} s, compute_s {compute_s:.5f}, "
+            f"memory_s {memory_s:.5f}, bound {bound:.5f} s ({row['bound_by']}), measured / "
+            f"bound {row['measured_over_bound']:.3f}; B5 {counts}"
+            + (f"; warm {row['busy']['warm_ms_per_step']:.3f} ms a step on the host clock, "
+               f"device busy {row['busy']['busy_share']}" if "busy" in row else ""))
+        del args, call, fn
+        torch.cuda.empty_cache()
+
+    # remat_dots against whole remat, at phase 18's shape (2 x 2048 if the
+    # saved products do not fit: the batch is cut, never the width).
+    try:
+        remat, oom = remat_compare(cfg, *TRAIN_SHAPE), None
+    except torch.cuda.OutOfMemoryError as e:
+        remat, oom = None, str(e).splitlines()[0]  # the traceback's tensors go with e
+    if remat is None:
+        log(f"  remat_dots at {TRAIN_SHAPE}: out of memory ({oom}); both variants again at "
+            f"2 x {TRAIN_SHAPE[1]}")
+        torch.cuda.empty_cache()
+        remat = remat_compare(cfg, 2, TRAIN_SHAPE[1])
+        remat["out_of_memory_at"] = list(TRAIN_SHAPE)
+    out["remat"] = remat
+    for name in ("whole", "dots"):
+        r = remat[name]
+        log(f"  remat {name}, {remat['batch']} x {remat['seq']}: steps "
+            f"{', '.join(f'{w:.4f}' for w in r['step_s'])} s, losses "
+            f"{', '.join(f'{x:.6f}' for x in r['losses'])}, grad norm {r['grad_norm']:.6f}, "
+            f"max_memory_allocated {r['max_memory_allocated'] / 1e9:.2f} GB over the steps, "
+            f"{r['grad_pass_max_memory_allocated'] / 1e9:.2f} GB over a loss and gradient "
+            "pass alone")
+    torch.cuda.empty_cache()
+
+    # The expert-parallel MoE on a 1 x 1 mesh: one Jamba MoE layer at full
+    # width in fp32 against the dense dispatch.
+    jcfg = dataclasses.replace(get_config("jamba-v0.1-52b"), dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mp = moe.init_moe_params(gen, jcfg, torch.float32, device="cuda")
+    x = torch.randn((4, 1024, jcfg.d_model), generator=gen, device="cuda")
+    want, want_aux = moe.moe_ffn(mp, x, jcfg)
+    moe.set_shard_map_context(mesh, ("data",), "model")
+    try:
+        got, got_aux = moe.moe_ffn(mp, x, jcfg)
+    finally:
+        moe.set_shard_map_context(None)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_aux, want_aux, rtol=1e-5, atol=1e-5)
+    out["moe_unit_mesh"] = dict(max_abs_err=float((got - want).abs().max()),
+                                aux=float(got_aux), aux_dense=float(want_aux))
+    log(f"  expert-parallel MoE on {mesh.label()}: Jamba's layer (d {jcfg.d_model}, "
+        f"{jcfg.moe.n_experts} experts, top-{jcfg.moe.top_k}, d_ff {jcfg.moe.d_ff_expert}), "
+        f"fp32, 4 x 1024 tokens: max abs err {out['moe_unit_mesh']['max_abs_err']:.3g} against "
+        f"the dense moe_ffn, aux {float(got_aux):.8f} against {float(want_aux):.8f}")
+    del mp, x, want, got
+    torch.cuda.empty_cache()
+
+    # An NCCL world of one process.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        distributed.initialize_from_env()
+        t = torch.arange(8, dtype=torch.float32, device="cuda")
+        dist.all_reduce(t)
+        if not torch.equal(t, torch.arange(8, dtype=torch.float32, device="cuda")):
+            raise AssertionError("all_reduce over a world of one changed its tensor")
+        try:
+            distributed.assert_production_topology(multi_pod=False)
+        except RuntimeError as e:
+            message = str(e)
+        else:
+            raise AssertionError("assert_production_topology passed on one card")
+        if "found 1 " not in message:
+            raise AssertionError(f"unexpected topology message {message!r}")
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["process_group"] = dict(backend=backend, topology_error=message)
+    log(f"  process group: {backend} world of 1, all_reduce unchanged; topology check: "
+        f"{message}")
+    out["launches_total"] = sum(sum(c.values()) for c in out["launches"].values())
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def cli_phase() -> dict:
     from repro_torch.core.faults import FaultPlan, FaultRule
 
@@ -3352,6 +3618,7 @@ def main() -> int:
     ssm = ssm_phase(peaks)
     encdec = encdec_phase(peaks)
     training = train_phase()
+    dry = dryrun_phase()
     # Launches on the paths: the nine routes, the baselines', the
     # layer-wise, the serving, refresh and sharded runs, each counted from
     # 0 just before it.
@@ -3387,12 +3654,14 @@ def main() -> int:
          "library_ms": seg_row["library_ms"]},
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
-        # launches: the ops path's, phases 15-17's LM serving runs and phase
-        # 18's eval prefill (its training steps launch none).
+        # launches: the ops path's, phases 15-17's LM serving runs, phase
+        # 18's eval prefill (its training steps launch none) and phase 19's
+        # prefill and decode step.
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
          "replaces": REPLACES["flash_attention"],
          "launches": ops_launches["flash_attention"] + lm["launches_total"]
-         + ssm["launches_total"] + encdec["launches_total"] + training["launches_total"],
+         + ssm["launches_total"] + encdec["launches_total"] + training["launches_total"]
+         + dry["launches_total"],
          "max_abs_err": att_err, "ms": prefill["ms"], "plain_ms": prefill["plain_ms"],
          "bound_ms": prefill["bound_ms"], "bound_by": prefill["bound_by"],
          "library_ms": prefill["library_ms"]},
@@ -3403,7 +3672,7 @@ def main() -> int:
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
-        "lm": lm, "ssm": ssm, "encdec": encdec, "training": training,
+        "lm": lm, "ssm": ssm, "encdec": encdec, "training": training, "dryrun": dry,
         "cli": cli, "path_launches": path_launches,
         "serve_launches": serve_launches, "kernels": kernels,
         "seconds": time.perf_counter() - t_start,

@@ -37,6 +37,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import randn
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.norms import rms_norm
@@ -60,7 +61,7 @@ NEG_INF = -1e30
 
 def _init(generator: torch.Generator, shape, dtype, device, scale=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    w = torch.randn(shape, generator=generator, device=generator.device) * scale
+    w = randn(shape, generator, device) * scale
     return w.to(device=device, dtype=dtype)
 
 

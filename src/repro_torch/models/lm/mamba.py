@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import randn
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.moe import silu
 
@@ -29,7 +30,7 @@ __all__ = ["init_mamba_params", "mamba_prefill", "mamba_decode", "init_mamba_cac
 def _init(generator: torch.Generator, shape, dtype, device, fan_in=None) -> torch.Tensor:
     """Normal draws scaled by ``1/sqrt(fan_in)`` (default ``shape[0]``)."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    w = torch.randn(shape, generator=generator, device=generator.device) / math.sqrt(fan_in)
+    w = randn(shape, generator, device) / math.sqrt(fan_in)
     return w.to(device=device, dtype=dtype)
 
 

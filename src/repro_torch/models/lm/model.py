@@ -12,8 +12,9 @@ Encoder-decoder configs (SeamlessM4T) run an encoder stack first (the
 ``encoder`` subtree); decoder blocks carry cross-attention whose KV is
 cached at prefill.
 
-``train_loss`` rematerialises each repeat of the stack and each loss
-chunk (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``),
+``train_loss`` rematerialises each repeat of the stack (``torch.utils.
+checkpoint``, as the reference's ``jax.checkpoint``, under the remat
+policy ``tp.set_remat_policy`` names) and each loss chunk,
 and computes the loss in 512-token chunks so the full ``[B, S, vocab]``
 logits never materialise (vocab reaches 256k).  Under autograd the
 attention takes the plain torch route on every device
@@ -28,15 +29,16 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import randn, resolve_device
 from repro_torch.models.lm.blocks import block_decode, block_prefill, init_block_params
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.norms import init_rms_norm, rms_norm
-from repro_torch.models.lm.tp import remat_policy
+from repro_torch.models.lm.tp import checkpoint_kwargs
 from repro_torch.utils.tree import tree_map
 
 __all__ = [
     "init_params",
+    "abstract_params",
     "params_from_jax",
     "train_loss",
     "prefill",
@@ -84,12 +86,14 @@ def init_params(
 ) -> dict:
     """Random parameters with the reference's distributions (not its
     values), drawn from ``generator`` on its own device and placed on
-    ``device`` (default ``"cuda"``)."""
-    device = resolve_device(device)
+    ``device`` (default ``"cuda"``).  On ``"meta"`` every leaf is an
+    empty meta tensor of the reference's shape and dtype, and nothing is
+    drawn (:func:`abstract_params`)."""
+    device = resolve_device(device, allow_meta=True)
     dtype = _dtype(cfg)
 
     def normal(shape):
-        w = torch.randn(shape, generator=generator, device=generator.device) * 0.02
+        w = randn(shape, generator, device) * 0.02
         return w.to(device=device, dtype=dtype)
 
     params: dict = {"embed": normal((cfg.vocab_padded, cfg.d_model))}
@@ -103,6 +107,12 @@ def init_params(
             "final_norm": init_rms_norm(cfg.d_model, device=device),
         }
     return params
+
+
+def abstract_params(cfg: LMConfig) -> dict:
+    """The parameter tree on ``"meta"``: the reference's keys, shapes and
+    dtypes, nothing allocated (the dry-run's parameters)."""
+    return init_params(cfg, generator=torch.Generator(), device="meta")
 
 
 def _leaf_from_numpy(a) -> torch.Tensor:
@@ -144,7 +154,8 @@ def _run_prefill_stack(
 ):
     """The stack over its repeats; with ``remat`` (under autograd) each
     repeat is recomputed in the backward pass instead of keeping its
-    activations."""
+    activations, all of them or, under the ``"dots"`` remat policy, all
+    but its products' outputs (``tp.checkpoint_kwargs``)."""
 
     def body(hx, r):
         repeat_caches = []
@@ -170,7 +181,8 @@ def _run_prefill_stack(
     auxs = []  # per repeat, summed over the pattern positions, as the reference's scan body
     for r in range(cfg.n_repeats):
         if remat:
-            x, repeat_caches, aux = checkpoint(body, x, r, use_reentrant=False)
+            x, repeat_caches, aux = checkpoint(body, x, r, use_reentrant=False,
+                                               **checkpoint_kwargs())
         else:
             x, repeat_caches, aux = body(x, r)
         for pos, cache in enumerate(repeat_caches):
@@ -236,10 +248,6 @@ def _ce_chunk(params, cfg: LMConfig, x: torch.Tensor, labels: torch.Tensor):
 
 def train_loss(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
     """Mean next-token CE (+ MoE aux).  Labels −100 are ignored."""
-    if remat_policy() is not None:
-        raise NotImplementedError(
-            f"remat policy {remat_policy()!r} is not ported yet (ROADMAP A-item 19: dry-runs "
-            "and sharding); train_loss rematerialises whole repeats")
     enc_out = None
     if cfg.encoder_layers > 0:
         enc_out = _run_encoder(params, cfg, batch["src_embeds"])

@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import randn
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.moe import silu
 
@@ -43,7 +44,7 @@ DECAY_LORA = 64
 def _init(generator: torch.Generator, shape, dtype, device, fan_in=None) -> torch.Tensor:
     """Normal draws scaled by ``1/sqrt(fan_in)`` (default ``shape[0]``)."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    w = torch.randn(shape, generator=generator, device=generator.device) / math.sqrt(fan_in)
+    w = randn(shape, generator, device) / math.sqrt(fan_in)
     return w.to(device=device, dtype=dtype)
 
 

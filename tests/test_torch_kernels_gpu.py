@@ -1085,3 +1085,79 @@ def test_lm_train_loss_on_the_card_launches_no_b5_and_matches_the_cpu(cuda, arch
     eval_batch = {k: v.to(cuda) for k, v in batch.items() if k != "labels"}
     _, counts = _b5_counts(lambda: lm_model.prefill(card_params, eval_batch, cfg))
     assert sum(counts.values()) >= 1
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
+def test_lm_moe_aux_on_the_card_equals_the_cpu(cuda, arch):
+    """The aux's expert counts are a float32 scatter-add of ones: exact
+    integers, whatever order the card's atomics add them in, so the card's
+    aux is the bincount formula's bits on the card's own router output,
+    and within float32 rounding of the CPU's (whose router products round
+    otherwise)."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    params = lm_moe.init_moe_params(torch.Generator().manual_seed(4), cfg, torch.float32,
+                                    device="cpu")
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal((3, 41, cfg.d_model))
+                         .astype(np.float32))
+    want, want_aux = lm_moe.moe_ffn(params, x, cfg)
+    card = tree_map(lambda a: a.to(cuda), params)
+    got, got_aux = lm_moe.moe_ffn(card, x.to(cuda), cfg)
+    probs = torch.softmax(x.to(cuda).reshape(-1, cfg.d_model) @ card["router"], dim=-1)
+    _, idx = lm_moe.top_k(probs, cfg.moe.top_k)
+    e = cfg.moe.n_experts
+    fe = torch.bincount(idx.reshape(-1), minlength=e).float() / idx.numel()
+    assert torch.equal(got_aux, e * torch.sum(fe * probs.mean(0)))
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-6, atol=0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "jamba-v0.1-52b"])
+def test_lm_remat_dots_on_the_card_equals_whole_remat(cuda, arch):
+    """The float32 smoke config's loss and every gradient under the
+    ``"dots"`` remat policy equal whole-repeat remat's on the card."""
+    from repro_torch.models.lm import tp as lm_tp
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    _, params = _lm_params(cfg, cuda, seed=3)
+    toks = torch.from_numpy(np.random.default_rng(23).integers(0, cfg.vocab, (2, 33))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def loss_and_grads():
+        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = lm_model.train_loss(tracked, batch, cfg)
+        return loss, torch.autograd.grad(loss, tree_leaves(tracked))
+
+    want, want_g = loss_and_grads()
+    lm_tp.set_remat_policy("dots")
+    try:
+        got, got_g = loss_and_grads()
+    finally:
+        lm_tp.set_remat_policy(None)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for g, w in zip(got_g, want_g, strict=True):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+
+
+def test_lm_expert_parallel_moe_on_a_unit_mesh_on_the_card(cuda):
+    """``_moe_ffn_shard_map`` on a 1 x 1 mesh equals the dense ``moe_ffn``
+    on the card (1e-5, aux too); a larger model axis raises on card tensors."""
+    from repro_torch.launch.mesh import AbstractMesh
+
+    cfg = dataclasses.replace(get_smoke("jamba-v0.1-52b"), dtype="float32")
+    params = tree_map(lambda a: a.to(cuda), lm_moe.init_moe_params(
+        torch.Generator().manual_seed(5), cfg, torch.float32, device="cpu"))
+    x = torch.randn((4, 64, cfg.d_model), generator=torch.Generator().manual_seed(6)).to(cuda)
+    want, want_aux = lm_moe.moe_ffn(params, x, cfg)
+    for shape, ok in (((1, 1), True), ((1, 2), False)):
+        lm_moe.set_shard_map_context(AbstractMesh(("data", "model"), shape), ("data",), "model")
+        try:
+            if not ok:
+                with pytest.raises(RuntimeError, match="cards"):
+                    lm_moe.moe_ffn(params, x, cfg)
+                continue
+            got, got_aux = lm_moe.moe_ffn(params, x, cfg)
+        finally:
+            lm_moe.set_shard_map_context(None)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got_aux, want_aux, rtol=1e-5, atol=1e-5)

@@ -124,23 +124,53 @@ def test_dense_ffn_matches_reference(activation):
            JMoE.dense_ffn(jp, jnp.asarray(x), activation))
 
 
-def test_unported_moe_and_mesh_raise_naming_the_roadmap_item():
-    """Meshes (tensor-parallel LM, expert-parallel MoE) wait for A-item 19;
-    ``None`` is the one-device no-op."""
-    with pytest.raises(NotImplementedError, match="A-item 19"):
-        TMoE.set_shard_map_context(object(), ("data",), "model")
-    TMoE.set_shard_map_context(None)
-    with pytest.raises(NotImplementedError, match="A-item 19"):
-        tp.set_tp_context(object())
-    tp.set_tp_context(None)
-    x, w = torch.randn(3, 4), torch.randn(4, 5)
-    assert torch.equal(tp.maybe_row_parallel(x, w), x @ w)
-    assert tp.maybe_barrier(x) is x
+@pytest.mark.parametrize("model", [1, 4])
+def test_row_parallel_psum_goes_by_the_model_axis_size(model):
+    """A model axis of 1: the psum is the identity on real tensors.  Larger:
+    on meta tensors the product runs in its global view and one all-reduce
+    of the per-device operand [T_local, D] in h's dtype is recorded (T_local
+    over the 2 data shards); on real tensors it raises."""
+    from repro_torch.analysis.counts import count_step
+    from repro_torch.launch.mesh import AbstractMesh
+
+    mesh = AbstractMesh(("data", "model"), (2, model))
+    x, w = torch.randn(4, 3, 8), torch.randn(8, 5)
+    tp.set_tp_context(mesh, "model")
+    try:
+        if model == 1:
+            assert torch.equal(tp.maybe_row_parallel(x, w), x @ w)
+        else:
+            with pytest.raises(RuntimeError, match="cards"):
+                tp.maybe_row_parallel(x, w)
+        xm, wm = x.to("meta").bfloat16(), w.to("meta").bfloat16()
+        out, counts = count_step(tp.maybe_row_parallel, xm, wm)
+    finally:
+        tp.set_tp_context(None)
+    assert out.shape == (4, 3, 5) and out.device.type == "meta"
+    assert counts.flops == 2 * 4 * 3 * 8 * 5
+    want = {} if model == 1 else {"all-reduce": 4 // 2 * 3 * 5 * 2}
+    assert {k: v for k, v in counts.collective_bytes.items() if v} == want
+    assert counts.collective_counts["all-reduce"] == (0 if model == 1 else 1)
+
+
+def test_switches_set_and_reset():
+    """``maybe_barrier`` stays the identity under ``bf16_psum`` (torch has no
+    compiler to pin); an unknown remat policy is refused."""
+    x = torch.randn(3, 4)
+    tp.set_bf16_barrier(True)
     tp.set_remat_policy("dots")
     tp.set_rwkv_chunked(True)
-    assert tp.remat_policy() == "dots" and tp.rwkv_chunked()
-    tp.set_remat_policy(None)
-    tp.set_rwkv_chunked(False)
+    try:
+        assert tp.maybe_barrier(x) is x
+        assert tp.remat_policy() == "dots" and tp.rwkv_chunked()
+        assert "context_fn" in tp.checkpoint_kwargs()
+        with pytest.raises(ValueError, match="remat policy"):
+            tp.set_remat_policy("everything")
+    finally:
+        tp.set_bf16_barrier(False)
+        tp.set_remat_policy(None)
+        tp.set_rwkv_chunked(False)
+    assert tp.remat_policy() is None and not tp.rwkv_chunked() and tp.checkpoint_kwargs() == {}
 
 
 # --------------------------------------------------------------- GQA

@@ -208,16 +208,32 @@ def test_params_from_jax_carries_bfloat16_bits():
 
 
 @pytest.mark.parametrize("arch", MOE_SSM)
-def test_train_loss_raises_naming_its_roadmap_item(arch):
-    """Only the dry-run's ``"dots"`` remat policy is left unported."""
+def test_train_loss_remat_dots_matches_whole_remat(arch):
+    """The ``"dots"`` remat policy (products' outputs saved, the rest
+    recomputed) changes what the backward pass keeps, not what it
+    computes: the loss and every gradient equal whole-repeat remat."""
     from repro_torch.models.lm import tp as lm_tp
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
+    _, _, cfg, params = _pair(arch)
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (B, 17))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+
+    def loss_and_grads():
+        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss = TM.train_loss(tracked, batch, cfg)
+        return loss, torch.autograd.grad(loss, tree_leaves(tracked))
+
+    want, want_g = loss_and_grads()
     lm_tp.set_remat_policy("dots")
     try:
-        with pytest.raises(NotImplementedError, match="A-item 19"):
-            TM.train_loss({}, {}, get_smoke(arch))
+        got, got_g = loss_and_grads()
     finally:
         lm_tp.set_remat_policy(None)
+    tol = dict(rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, want, **tol)
+    for g, w in zip(got_g, want_g, strict=True):
+        torch.testing.assert_close(g, w, **tol)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

@@ -153,10 +153,84 @@ def test_init_moe_params_has_the_reference_layout_and_distributions():
                                        rtol=0.05)
 
 
-def test_shard_map_context_raises_for_a_mesh_naming_the_roadmap_item():
-    TMoE.set_shard_map_context(None)
-    with pytest.raises(NotImplementedError, match="A-item 19"):
-        TMoE.set_shard_map_context(object(), ("data",), "model")
+def _unit_mesh_run(moe_mod, mesh, params, x, cfg):
+    moe_mod.set_shard_map_context(mesh, ("data",), "model")
+    try:
+        return moe_mod.moe_ffn(params, x, cfg)
+    finally:
+        moe_mod.set_shard_map_context(None)
+
+
+@pytest.mark.parametrize("n_shared", [0, 1])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"])
+def test_shard_map_path_matches_dense_and_reference_on_unit_mesh(arch, n_shared):
+    """The expert-parallel MoE on a 1 x 1 mesh against the dense ``moe_ffn``
+    and the reference's own 1 x 1 ``shard_map`` output (1e-5, as the
+    reference's tests/test_moe.py holds its own), with and without a
+    shared expert."""
+    from repro_torch.launch.mesh import AbstractMesh
+
+    moe = dict(n_shared=1, d_ff_shared=64) if n_shared else {}
+    jcfg, cfg = _cfgs(arch, **moe)
+    jp, tp = _params(jcfg)
+    x = np.random.default_rng(3).standard_normal((2, 8, cfg.d_model)).astype(np.float32)
+    base, aux_base = TMoE.moe_ffn(tp, torch.from_numpy(x), cfg)
+    got, aux_got = _unit_mesh_run(TMoE, AbstractMesh(("data", "model"), (1, 1)), tp,
+                                  torch.from_numpy(x), cfg)
+    want, aux_want = _unit_mesh_run(JMoE, jax.make_mesh((1, 1), ("data", "model")), jp,
+                                    jnp.asarray(x), jcfg)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    _close(got, base.numpy(), tol)
+    _close(aux_got, float(aux_base), tol)
+    _close(got, want, tol)
+    _close(aux_got, float(aux_want), tol)
+
+
+@pytest.mark.parametrize("n_model", [2, 4, 16])
+def test_expert_blocks_sum_to_the_whole_dispatch(n_model):
+    """What the psum over ``n_model`` model shards adds up: each shard's
+    ``_dispatch`` over its block of experts (the reference's local expert
+    range) summed equals the dispatch over every expert."""
+    _, cfg = _cfgs("phi3.5-moe-42b-a6.6b", n_experts=16)
+    _, tp = _params(_cfgs("phi3.5-moe-42b-a6.6b", n_experts=16)[0])
+    xf = torch.from_numpy(np.random.default_rng(4).standard_normal((24, cfg.d_model))
+                          .astype(np.float32))
+    whole, probs, idx = TMoE._dispatch(tp, xf, cfg, 0, 16)
+    e_loc = 16 // n_model
+    total = 0
+    for j in range(n_model):
+        block = {n: tp[n][j * e_loc:(j + 1) * e_loc] for n in ("we1", "we2", "we3")}
+        out, p_j, idx_j = TMoE._dispatch({**tp, **block}, xf, cfg, j * e_loc, e_loc)
+        assert torch.equal(p_j, probs) and torch.equal(idx_j, idx)
+        total = total + out
+    torch.testing.assert_close(total, whole, rtol=1e-6, atol=1e-6)
+
+
+def test_shard_map_raises_for_a_larger_mesh_on_real_tensors():
+    from repro_torch.launch.mesh import AbstractMesh
+
+    _, cfg = _cfgs("phi3.5-moe-42b-a6.6b")
+    _, tp = _params(_cfgs("phi3.5-moe-42b-a6.6b")[0])
+    x = torch.zeros(2, 4, cfg.d_model)
+    with pytest.raises(RuntimeError, match="cards"):
+        _unit_mesh_run(TMoE, AbstractMesh(("data", "model"), (1, 2)), tp, x, cfg)
+    assert TMoE._SHARD_MAP_CTX is None
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_aux_is_the_bincount_formula_bit_for_bit(arch):
+    """The aux's expert counts, now a float32 scatter-add of ones (it has a
+    meta kernel), are the same bits as the former ``torch.bincount``."""
+    _, cfg = _cfgs(arch)
+    _, tp = _params(_cfgs(arch)[0])
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 41, cfg.d_model))
+                         .astype(np.float32))
+    _, aux = TMoE.moe_ffn(tp, x, cfg)
+    probs = torch.softmax(x.reshape(-1, cfg.d_model) @ tp["router"], dim=-1)
+    _, idx = TMoE.top_k(probs, cfg.moe.top_k)
+    e, n = cfg.moe.n_experts, idx.numel()
+    fe = torch.bincount(idx.reshape(-1), minlength=e).float() / n
+    assert torch.equal(aux, e * torch.sum(fe * probs.mean(0)))
 
 
 def _tied_router(router: np.ndarray, case: str) -> np.ndarray:

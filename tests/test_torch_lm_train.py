@@ -109,11 +109,25 @@ def test_rematerialisation_changes_no_value(monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_train_loss_raises_for_the_dots_remat_policy_naming_its_roadmap_item():
-    _, _, cfg, tp = _pair("yi-6b")
+def test_dots_remat_policy_saves_every_product_output_and_keeps_the_gradients():
+    """Under ``"dots"`` each repeat's checkpoint gets a selective context
+    whose policy saves ``mm`` / ``addmm`` outputs and recomputes the rest;
+    the loss and gradients equal whole remat's and the reference's."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    jcfg, jp, cfg, tp = _pair("yi-6b")
+    batch = _batch(cfg, jcfg, 1, 8)
+    kwargs = []
+    real = TM.checkpoint
     lm_tp.set_remat_policy("dots")
     try:
-        with pytest.raises(NotImplementedError, match="A-item 19"):
-            TM.train_loss(tp, _batch(cfg, None, 1, 8), cfg)
+        policy = lm_tp.checkpoint_kwargs()["context_fn"].args[0]
+        assert policy(None, torch.ops.aten.mm.default) == CheckpointPolicy.MUST_SAVE
+        assert policy(None, torch.ops.aten.addmm.default) == CheckpointPolicy.MUST_SAVE
+        assert policy(None, torch.ops.aten.bmm.default) == CheckpointPolicy.PREFER_RECOMPUTE
+        TM.checkpoint = lambda fn, *a, **kw: kwargs.append(kw) or real(fn, *a, **kw)
+        _check(jcfg, jp, cfg, tp, batch)
     finally:
+        TM.checkpoint = real
         lm_tp.set_remat_policy(None)
+    assert sum("context_fn" in kw for kw in kwargs) == cfg.n_repeats  # the loss chunk keeps none
