@@ -1,0 +1,8 @@
+"""Feature-cache hits over lookups in the window, in %, from the program's exact counts."""
+
+
+def read(ctx):
+    hits = ctx.get("hits")
+    if not hits or not hits["feat_lookups"]:
+        return None
+    return 100.0 * hits["feat_hits"] / hits["feat_lookups"]
