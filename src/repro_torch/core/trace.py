@@ -29,7 +29,31 @@ d-1``), so depth-``d`` overlap is *visible* as d stacked lanes with
 concurrent batch spans; serving layers add one request-lifecycle lane per
 stream (``req:s0`` …), the refresh manager a ``refresh`` lane, sharded
 serving an exchange lane per shard.  Lanes are created on first use and
-named via Chrome ``M`` (metadata) events.
+named via Chrome ``M`` (metadata) events.  A span opened without a lane
+joins the lane of the innermost span still open on its tracer, so a wait
+inside a stage (``sync:num_unique`` in ``sample``) nests in that stage.
+
+Profiler sessions
+-----------------
+While a ``torch.profiler`` session records, ``resolve_tracer(None)`` hands
+every run one process-wide :class:`Tracer` for that session (PyTorch's own
+``record_function`` follows the same rule: it records only while a
+profiler does).  A run that starts while no profiler records closes the
+session; the first run that starts while one records opens a new, empty
+one.  (Torch tells no profiler session from the next, so two sessions
+with no run between them share one tracer.)  :func:`profiler_session`
+returns it, also after the profiler has stopped.  Every span of any
+:class:`Tracer` enters ``torch.profiler.record_function`` exactly while a
+profiler records, so the program's spans land in the profiler's timeline
+on the kernels' clock.
+
+Wait spans
+----------
+A span named ``drain:*`` or ``sync:*`` is a *wait span*: the host blocked
+on the card for one whole-device synchronize or one blocking
+device-to-host read.  :func:`summarize_trace` counts them and gives every
+span name its self time (its duration less what its children on the same
+lane cover).
 
 Tracing is observational only: it reads wall clocks and appends to a host
 list, never touching RNG streams, device buffers, or dispatch order — so
@@ -47,13 +71,17 @@ import itertools
 import json
 import math
 import time
-from typing import Any, Callable, Iterable, Mapping
+from typing import Any, Iterable, Mapping
+
+from torch.autograd import profiler as _torch_profiler
 
 __all__ = [
     "MetricsRegistry",
     "NULL_TRACER",
     "NullTracer",
     "Tracer",
+    "is_wait_span",
+    "profiler_session",
     "resolve_tracer",
     "summarize_trace",
     "validate_trace",
@@ -66,14 +94,14 @@ class _Span:
     """A single reusable span context (one per ``Tracer.span`` call).
 
     Timestamps are taken inside ``__enter__``/``__exit__`` so the recorded
-    duration brackets exactly the ``with`` body (plus the optional
-    ``torch.profiler.record_function`` enter/exit, which is what lines
-    device kernels up with the host span in a ``torch.profiler`` capture).
+    duration brackets exactly the ``with`` body (plus, while a profiler
+    records, the ``torch.profiler.record_function`` enter/exit that lines
+    device kernels up with the host span in the profiler's trace).
     """
 
     __slots__ = ("_tracer", "name", "tid", "args", "_t0", "_ann")
 
-    def __init__(self, tracer: "Tracer", name: str, tid: int, args):
+    def __init__(self, tracer: "Tracer", name: str, tid: int | None, args):
         self._tracer = tracer
         self.name = name
         self.tid = tid
@@ -82,9 +110,12 @@ class _Span:
         self._ann = None
 
     def __enter__(self) -> "_Span":
-        ann = self._tracer._annotate
-        if ann is not None:
-            self._ann = ann(self.name)
+        tr = self._tracer
+        if self.tid is None:  # the lane of the innermost open span
+            self.tid = tr._open[-1] if tr._open else tr.lane("main")
+        tr._open.append(self.tid)
+        if _torch_profiler._is_profiler_enabled:
+            self._ann = _torch_profiler.record_function(self.name)
             self._ann.__enter__()
         self._t0 = time.perf_counter()
         return self
@@ -94,6 +125,7 @@ class _Span:
         if self._ann is not None:
             self._ann.__exit__(exc_type, exc, tb)
         tr = self._tracer
+        tr._open.pop()
         ev: dict[str, Any] = {
             "name": self.name,
             "ph": "X",
@@ -112,26 +144,20 @@ class Tracer:
     """Records spans/instants/counters/flows; exports Chrome trace JSON.
 
     All timestamps are microseconds relative to the tracer's creation
-    (``time.perf_counter`` epoch).  ``profiler_annotations=True``
-    additionally wraps every span in ``torch.profiler.record_function`` so
-    host spans show up alongside device kernels in a ``torch.profiler``
-    trace.
+    (``time.perf_counter`` epoch).  While a ``torch.profiler`` session
+    records, every span also enters ``torch.profiler.record_function``, so
+    host spans show up beside the device kernels in the profiler's trace.
+    Spans nest per lane; one tracer is driven from one thread.
     """
 
     enabled = True
 
-    def __init__(
-        self, *, profiler_annotations: bool = False, process_name: str = "repro-infer"
-    ):
+    def __init__(self, *, process_name: str = "repro-infer"):
         self._epoch = time.perf_counter()
         self._events: list[dict[str, Any]] = []
         self._lanes: dict[str, int] = {}
+        self._open: list[int] = []  # lanes of the spans still open, innermost last
         self._next_flow = itertools.count(1)
-        self._annotate: Callable[[str], Any] | None = None
-        if profiler_annotations:
-            import torch
-
-            self._annotate = torch.profiler.record_function
         self._meta(0, "process_name", {"name": process_name})
 
     # -- time ----------------------------------------------------------
@@ -163,9 +189,11 @@ class Tracer:
         )
 
     # -- events --------------------------------------------------------
-    def span(self, name: str, *, lane: str = "main", args: dict | None = None) -> _Span:
-        """Context manager recording one complete (``ph:"X"``) event."""
-        return _Span(self, name, self.lane(lane), args)
+    def span(self, name: str, *, lane: str | None = None, args: dict | None = None) -> _Span:
+        """Context manager recording one complete (``ph:"X"``) event on
+        ``lane``; without one, on the lane of the innermost span still
+        open when it enters (``main`` when none is)."""
+        return _Span(self, name, None if lane is None else self.lane(lane), args)
 
     def complete(
         self,
@@ -297,7 +325,7 @@ class NullTracer:
     def lane(self, name: str) -> int:
         return 0
 
-    def span(self, name: str, *, lane: str = "main", args: dict | None = None) -> _NullSpan:
+    def span(self, name: str, *, lane: str | None = None, args: dict | None = None) -> _NullSpan:
         return _NULL_SPAN
 
     def complete(self, name: str, *, lane: str, ts_us: float, dur_us: float, args=None) -> None:
@@ -329,10 +357,38 @@ class NullTracer:
 NULL_TRACER = NullTracer()
 
 
+_session: Tracer | None = None  # the tracer of the newest profiler session
+
+
+def profiler_session() -> Tracer | None:
+    """The tracer the newest ``torch.profiler`` session recorded into, or
+    ``None`` when no run has started under a profiler since the last run
+    that started without one."""
+    return _session
+
+
 def resolve_tracer(tracer: Tracer | NullTracer | None) -> Tracer | NullTracer:
-    """``tracer`` or the shared no-op singleton — the idiom every runtime
-    entry point uses so ``tracer=None`` (the default) costs nothing."""
-    return tracer if tracer is not None else NULL_TRACER
+    """``tracer``; else, while a ``torch.profiler`` session records, that
+    session's tracer (opened by the first run that starts under it); else
+    the shared no-op singleton, closing any session.  The idiom every
+    runtime entry point uses, so ``tracer=None`` (the default) costs
+    nothing outside a profiler."""
+    global _session
+    if tracer is not None:
+        return tracer
+    if _torch_profiler._is_profiler_enabled:
+        if _session is None:
+            _session = Tracer(process_name="repro-profiler")
+        return _session
+    _session = None
+    return NULL_TRACER
+
+
+def is_wait_span(name: str) -> bool:
+    """Whether a span named ``name`` is a wait span (``drain:*``,
+    ``sync:*``): one whole-device synchronize or one blocking
+    device-to-host read."""
+    return name.startswith(("drain:", "sync:"))
 
 
 # ---------------------------------------------------------------------------
@@ -402,17 +458,44 @@ def validate_trace(events: Iterable[Mapping]) -> list[str]:
     return errors
 
 
+def _self_us(spans: list[Mapping]) -> list[float]:
+    """Each span's self time (µs): its duration less the union of its
+    direct children's, where a child is a span on the same lane that lies
+    inside it (to a nanosecond: the stamps are rounded floats).  A span
+    that only partly overlaps another is no child of it."""
+    children: list[list[tuple[float, float]]] = [[] for _ in spans]
+    by_lane: dict[Any, list[int]] = {}
+    for i, e in enumerate(spans):
+        by_lane.setdefault((e.get("pid"), e["tid"]), []).append(i)
+    for idx in by_lane.values():
+        # Parents before their children: earlier start first, longer first.
+        idx.sort(key=lambda i: (spans[i]["ts"], -spans[i]["dur"]))
+        stack: list[int] = []
+        for i in idx:
+            ts, end = spans[i]["ts"], spans[i]["ts"] + spans[i]["dur"]
+            while stack and spans[stack[-1]]["ts"] + spans[stack[-1]]["dur"] <= ts:
+                stack.pop()
+            if stack and end <= spans[stack[-1]]["ts"] + spans[stack[-1]]["dur"] + 1e-3:
+                children[stack[-1]].append((ts, end))
+            stack.append(i)
+    return [e["dur"] - sum(b - a for a, b in _union(kids)) for e, kids in zip(spans, children)]
+
+
 def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str = "slot") -> dict:
     """Aggregate a trace for human / CI consumption.
 
     Returns per-lane busy time and utilization (busy / trace extent),
-    per-span-name totals ("stages"), the pipeline *overlap fraction* —
+    per-span-name totals ("stages": total, self, count and longest), the
+    pipeline *overlap fraction* —
     of the wall time during which at least one ``slot*`` lane was busy,
     the share during which two or more were busy concurrently (exactly 0
-    for a serial depth-1 run; > 0 whenever batches overlapped) — and the
-    ``top`` longest individual spans.  Slot-lane busy time is measured on
+    for a serial depth-1 run; > 0 whenever batches overlapped) — the
+    ``top`` longest individual spans, and the wait spans' count
+    (``waits``) and time (``wait_ms``).  Slot-lane busy time is measured on
     batch spans (each slot's enclosing dispatch→retire window), which are
-    non-nested per lane, so nested stage spans don't double-count.
+    non-nested per lane, so nested stage spans don't double-count.  A
+    span's self time is its duration less what its children on the same
+    lane cover.
     """
     events = list(events)
     lane_of = _lane_names(events)
@@ -426,6 +509,8 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
             "stages": {},
             "overlap_fraction": 0.0,
             "top_spans": [],
+            "waits": 0,
+            "wait_ms": 0.0,
             "n_events": len(events),
             "n_flows": len({e.get("id") for e in flows}) if flows else 0,
             "counters": counters,
@@ -436,13 +521,20 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
 
     by_lane: dict[str, list[tuple[float, float]]] = {}
     stages: dict[str, dict[str, float]] = {}
-    for e in spans:
+    waits, wait_us = 0, 0.0
+    for e, self_us in zip(spans, _self_us(spans)):
         lane = lane_of.get(e["tid"], f"tid {e['tid']}")
         by_lane.setdefault(lane, []).append((e["ts"], e["ts"] + e["dur"]))
-        st = stages.setdefault(e["name"], {"total_ms": 0.0, "count": 0, "max_ms": 0.0})
+        st = stages.setdefault(
+            e["name"], {"total_ms": 0.0, "self_ms": 0.0, "count": 0, "max_ms": 0.0}
+        )
         st["total_ms"] += e["dur"] / 1e3
+        st["self_ms"] += self_us / 1e3
         st["count"] += 1
         st["max_ms"] = max(st["max_ms"], e["dur"] / 1e3)
+        if is_wait_span(e["name"]):
+            waits += 1
+            wait_us += e["dur"]
 
     lanes = {}
     for lane, ivals in sorted(by_lane.items()):
@@ -490,6 +582,8 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
             }
             for e in top_spans
         ],
+        "waits": waits,
+        "wait_ms": wait_us / 1e3,
         "n_events": len(events),
         "n_flows": len({e.get("id") for e in flows}) if flows else 0,
         "counters": counters,

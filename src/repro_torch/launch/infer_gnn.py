@@ -20,7 +20,9 @@ request-level serving on an arrival clock (runtime/request_queue.py):
 (runtime/cache_refresh.py); ``--mesh K`` shards the feature store into K
 node-id ranges (runtime/sharded_serve.py).  ``--faults PLAN.json`` replays
 a fault plan (core/faults.py) under ``--fault-policy`` and
-``--degraded-mode``.  ``--policy`` takes dci, sci,
+``--degraded-mode``.  ``--trace OUT.json`` writes the run's span timeline
+(core/trace.py); ``--profile OUT.json`` runs under ``torch.profiler`` and
+writes its trace, the program's spans beside the kernels.  ``--policy`` takes dci, sci,
 aci, dgl, ducati and rain; ``--mode layerwise`` scores every node layer by
 layer in ``--chunk-size`` node ranges instead of sampling mini-batches.
 Runs on the CUDA card unless ``--device cpu`` is given; with no card and
@@ -31,6 +33,7 @@ LayerwiseReport; serving: the ServeReport) as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 from repro_torch.core.config import INFERENCE_MODES, REFRESH_MODES, ServeConfig
@@ -47,6 +50,23 @@ from repro_torch.runtime.request_queue import (
     poisson_trace,
     uniform_seed_batches,
 )
+
+
+@contextlib.contextmanager
+def _profiled(path: str | None):
+    """Run the body under ``torch.profiler`` and write its Chrome trace to
+    ``path``; without a path, run it plainly."""
+    if path is None:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(path)
 
 
 def _depth(value: str):
@@ -213,10 +233,12 @@ def main(argv: list[str] | None = None) -> None:
         "as Chrome trace-event JSON",
     )
     ap.add_argument(
-        "--trace-profiler",
-        action="store_true",
-        help="also wrap every span in torch.profiler.record_function, so spans show "
-        "up beside the kernels in a torch.profiler capture (needs --trace)",
+        "--profile",
+        default=None,
+        metavar="OUT.json",
+        help="run under torch.profiler (CPU and, with a card, CUDA activities) and "
+        "write its Chrome trace: the program's spans (core/trace.py) beside the "
+        "kernels, on one clock",
     )
     ap.add_argument(
         "--metrics",
@@ -260,13 +282,11 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.trace_profiler and args.trace is None:
-        ap.error("--trace-profiler requires --trace")
     if args.arrival == "burst":
         args.streams = 2  # the burst trace is one flash-crowd + one steady stream
     # One typed config carries every knob from here down.
     cfg = ServeConfig.from_args(args)
-    tracer = Tracer(profiler_annotations=args.trace_profiler) if args.trace is not None else None
+    tracer = Tracer() if args.trace is not None else None
     metrics = MetricsRegistry() if args.metrics is not None else None
 
     fanouts = tuple(int(x) for x in args.fanouts.split(","))
@@ -293,81 +313,82 @@ def main(argv: list[str] | None = None) -> None:
     # Under a fault plan a fail-fast abort still prints the partial report
     # (with its 'error' field) instead of a traceback.
     raise_on_error = args.faults is None
-    if args.mode == "layerwise":
-        # Full-graph scoring is a whole-dataset pass; the serving front-ends
-        # are sampling-mode machinery.
-        rep = eng.run(config=cfg.engine, tracer=tracer, metrics=metrics)
-    elif args.arrival != "none":
-        slo_s = args.slo_ms / 1e3 if args.slo_ms is not None else None
-        if args.arrival == "poisson":
-            trace = poisson_trace(
-                ds,
-                num_streams=args.streams,
-                requests_per_stream=per_stream,
-                batch_size=args.batch_size,
-                mean_interarrival_s=args.mean_interarrival_ms / 1e3,
-                slo_s=slo_s,
-                seed=eng.seed,
-            )
-        elif args.arrival == "flash-crowd":
-            trace = flash_crowd_trace(
-                ds,
-                num_streams=args.streams,
-                requests_per_stream=per_stream,
-                batch_size=args.batch_size,
-                slo_s=slo_s,
-                seed=eng.seed,
-            )
-        else:  # burst: pace the steady stream at the measured service time
-            probe = uniform_seed_batches(ds, n_batches=1, batch_size=args.batch_size,
-                                         seed=eng.seed)[0]
-            service_s = float(sum(eng._probe_stage_seconds(probe)))
-            trace = burst_trace(
-                ds,
-                burst_requests=per_stream,
-                steady_requests=2 * per_stream,
-                batch_size=args.batch_size,
-                service_estimate_s=service_s,
-                slo_s=slo_s,
-                seed=eng.seed,
-            )
-        server = RequestQueueServer(eng, config=cfg, tracer=tracer, metrics=metrics)
-        for sid, requests in enumerate(trace):
-            server.add_request_stream(requests, seed=eng.seed + sid)
-        rep = server.run(raise_on_error=raise_on_error)
-    elif args.streams > 1 or args.mesh > 0:
-        if args.mesh > 0:
-            from repro_torch.runtime.sharded_serve import ShardedServer
+    with _profiled(args.profile):
+        if args.mode == "layerwise":
+            # Full-graph scoring is a whole-dataset pass; the serving front-ends
+            # are sampling-mode machinery.
+            rep = eng.run(config=cfg.engine, tracer=tracer, metrics=metrics)
+        elif args.arrival != "none":
+            slo_s = args.slo_ms / 1e3 if args.slo_ms is not None else None
+            if args.arrival == "poisson":
+                trace = poisson_trace(
+                    ds,
+                    num_streams=args.streams,
+                    requests_per_stream=per_stream,
+                    batch_size=args.batch_size,
+                    mean_interarrival_s=args.mean_interarrival_ms / 1e3,
+                    slo_s=slo_s,
+                    seed=eng.seed,
+                )
+            elif args.arrival == "flash-crowd":
+                trace = flash_crowd_trace(
+                    ds,
+                    num_streams=args.streams,
+                    requests_per_stream=per_stream,
+                    batch_size=args.batch_size,
+                    slo_s=slo_s,
+                    seed=eng.seed,
+                )
+            else:  # burst: pace the steady stream at the measured service time
+                probe = uniform_seed_batches(ds, n_batches=1, batch_size=args.batch_size,
+                                             seed=eng.seed)[0]
+                service_s = float(sum(eng._probe_stage_seconds(probe)))
+                trace = burst_trace(
+                    ds,
+                    burst_requests=per_stream,
+                    steady_requests=2 * per_stream,
+                    batch_size=args.batch_size,
+                    service_estimate_s=service_s,
+                    slo_s=slo_s,
+                    seed=eng.seed,
+                )
+            server = RequestQueueServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+            for sid, requests in enumerate(trace):
+                server.add_request_stream(requests, seed=eng.seed + sid)
+            rep = server.run(raise_on_error=raise_on_error)
+        elif args.streams > 1 or args.mesh > 0:
+            if args.mesh > 0:
+                from repro_torch.runtime.sharded_serve import ShardedServer
 
-            server = ShardedServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+                server = ShardedServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+            else:
+                server = MultiStreamServer(eng, config=cfg, tracer=tracer, metrics=metrics)
+            queues = make_stream_batches(
+                ds,
+                num_streams=args.streams,
+                batches_per_stream=per_stream,
+                batch_size=args.batch_size,
+                seed=eng.seed,
+            )
+            seeds = stream_seeds if stream_seeds is not None else [eng.seed]
+            for sid, queue in enumerate(queues):
+                server.add_stream(queue, seed=seeds[sid])
+            rep = server.run(raise_on_error=raise_on_error)
         else:
-            server = MultiStreamServer(eng, config=cfg, tracer=tracer, metrics=metrics)
-        queues = make_stream_batches(
-            ds,
-            num_streams=args.streams,
-            batches_per_stream=per_stream,
-            batch_size=args.batch_size,
-            seed=eng.seed,
-        )
-        seeds = stream_seeds if stream_seeds is not None else [eng.seed]
-        for sid, queue in enumerate(queues):
-            server.add_stream(queue, seed=seeds[sid])
-        rep = server.run(raise_on_error=raise_on_error)
-    else:
-        # The servers resolve the injector from cfg.faults; the single-stream
-        # engine takes live handles.
-        injector = None
-        if args.faults is not None:
-            injector = FaultInjector(FaultPlan.load(args.faults), tracer=tracer)
-        rep = eng.run(
-            config=cfg.engine,
-            max_batches=args.max_batches,
-            tracer=tracer,
-            metrics=metrics,
-            injector=injector,
-            retry_policy=cfg.retry_policy(),
-            degraded_mode=cfg.degraded_mode,
-        )
+            # The servers resolve the injector from cfg.faults; the single-stream
+            # engine takes live handles.
+            injector = None
+            if args.faults is not None:
+                injector = FaultInjector(FaultPlan.load(args.faults), tracer=tracer)
+            rep = eng.run(
+                config=cfg.engine,
+                max_batches=args.max_batches,
+                tracer=tracer,
+                metrics=metrics,
+                injector=injector,
+                retry_policy=cfg.retry_policy(),
+                degraded_mode=cfg.degraded_mode,
+            )
     print(json.dumps(rep.summary(), indent=1))
     if tracer is not None:
         tracer.export(args.trace)

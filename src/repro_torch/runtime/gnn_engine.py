@@ -402,7 +402,8 @@ class StreamRuntime:
         is the batch's own pow2 ceiling, so ``gathered_rows <= 2 *
         unique_rows`` per batch."""
         dd = block.dedup
-        nu = int(dd.num_unique)
+        with self.tracer.span("sync:num_unique"):
+            nu = int(dd.num_unique)
         bucket = pow2_bucket(nu, int(dd.unique_ids.shape[0]))
         view = (dd, nu, bucket, dd.unique_ids[:bucket])
         ctx.outputs["_dedup"] = view
@@ -432,7 +433,8 @@ class StreamRuntime:
             _, nu, _, nodes = self._dedup_view(ctx)
         else:
             nodes = ctx.outputs["sample"][0].input_nodes
-        nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
+        with self.tracer.span("sync:prefetch_ids"):
+            nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
         stage = lambda: self._prefetch(ctx, nodes, num_live=nu)  # noqa: E731
         if self.injector is None:
             staged = stage()
@@ -541,7 +543,8 @@ class StreamRuntime:
         self.gathered_rows += int(block.input_nodes.shape[0])
         nodes = None
         if self.pipe.reuse_prev_batch:
-            nodes = block.input_nodes.cpu().numpy()  # the reuse lookup runs on the host
+            with self.tracer.span("sync:reuse_ids"):
+                nodes = block.input_nodes.cpu().numpy()  # the reuse lookup runs on the host
         if self._prev_feats is not None:
             # RAIN: a row the previous batch loaded is taken from its
             # features.  As in the reference, every row is still gathered
@@ -573,16 +576,24 @@ class StreamRuntime:
         with torch.inference_mode():
             return self.model(feats, inverse_index=inverse)
 
+    def _read(self, value) -> int:
+        """``int(value)``: one blocking device-to-host read, traced as a
+        ``sync:record`` wait span of its own."""
+        with self.tracer.span("sync:record"):
+            return int(value)
+
     def record(self, ctx) -> None:
         """Host-side accounting; runs per batch, in order, after the batch's
         stage outputs are ready, so the int() reads are cheap.  With a
         telemetry sink it also reads the batch's frontier, hit mask and
         edge slots back to the host (the reference's semantics: one
-        device-to-host read of each per retired batch)."""
+        device-to-host read of each per retired batch; those reads have
+        no wait span)."""
         block, bh, bt = ctx.outputs["sample"]
         feature_out = ctx.outputs["feature"]
         hit, hsum = feature_out[1], feature_out[2]
-        bh, bt, hsum, lookups = int(bh), int(bt), int(hsum), int(hit.shape[0])
+        bh, bt, hsum = self._read(bh), self._read(bt), self._read(hsum)
+        lookups = int(hit.shape[0])
         self.adj_hits += bh
         self.adj_lookups += bt
         self.feat_hits += hsum
@@ -611,7 +622,8 @@ class StreamRuntime:
                     block.input_nodes.cpu().numpy(), hit.cpu().numpy(), slots
                 )
         if self.outputs is not None:
-            self.outputs.append(ctx.outputs["compute"].cpu().numpy())
+            with self.tracer.span("sync:outputs"):
+                self.outputs.append(ctx.outputs["compute"].cpu().numpy())
 
     def epoch_hit_rates(self) -> dict[int, dict]:
         """Per-epoch hit-rate summary (one entry per cache epoch served)."""

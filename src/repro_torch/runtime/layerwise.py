@@ -34,6 +34,15 @@ Each chunk's index vector lives on the run's device from the plan on
 (``ChunkSpec.device_ids``), and each layer re-points its pad positions
 there, so a chunk's gather starts without a host→device copy from
 pageable memory, which would wait for the previous chunk's compute.
+
+With a tracer (core/trace.py), a pass's set-up is in spans on the
+``layers`` lane: ``plan`` (the chunk plan and the access counts),
+``probe`` (Eq. 1's probe laps, each a ``sync:probe`` wait, and the
+split), ``refill`` (the layer-0 re-fill), and per layer ``spill-alloc``
+(the pinned spill table), ``warm`` (with its ``sync:warm``), ``layer k``
+(the chunks through the executor) and ``embed-fill``.  Each chunk's
+retire holds two waits of its own: ``sync:spill`` (the copy to the spill
+table) and ``sync:hits`` (its hit count).
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import torch
 from repro_torch.core.allocation import LayerwiseAllocation, allocate_layerwise_capacity
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.policies import PreparedPipeline
-from repro_torch.core.trace import resolve_tracer
+from repro_torch.core.trace import NULL_TRACER, resolve_tracer
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.features import (
     FeatureStore,
@@ -284,17 +293,20 @@ class LayerwiseReport:
 
 
 def _probe_gather_seconds(
-    store: FeatureStore, ids: torch.Tensor, reps: int = 2, **gather_kw
+    store: FeatureStore, ids: torch.Tensor, reps: int = 2, *, tracer=NULL_TRACER, **gather_kw
 ) -> float:
     """Best-of-``reps`` synchronized gather lap over one chunk's index set —
     the layer-wise analogue of presampling's per-stage laps (Eq. 1 input).
-    One untimed gather first (a kernel's first launch loads its library)."""
-    block_until_ready(store.gather(ids, **gather_kw)[0])
+    One untimed gather first (a kernel's first launch loads its library).
+    Each synchronized lap is a ``sync:probe`` wait span."""
+    with tracer.span("sync:probe"):
+        block_until_ready(store.gather(ids, **gather_kw)[0])
     best = float("inf")
     for _ in range(reps):
-        t0 = time.perf_counter()
-        block_until_ready(store.gather(ids, **gather_kw)[0])
-        best = min(best, time.perf_counter() - t0)
+        with tracer.span("sync:probe"):
+            t0 = time.perf_counter()
+            block_until_ready(store.gather(ids, **gather_kw)[0])
+            best = min(best, time.perf_counter() - t0)
     return best
 
 
@@ -341,8 +353,10 @@ def run_layerwise(
     dev = pipe.caches.store.hot_table.device
     on_cuda = dev.type == "cuda"
 
-    plan = plan_chunks(graph, chunk_size, device=dev)
-    access_counts = layerwise_access_counts(graph)
+    # Per-pass set-up: each part is a span on the ``layers`` lane.
+    with tracer.span("plan", lane="layers"):
+        plan = plan_chunks(graph, chunk_size, device=dev)
+        access_counts = layerwise_access_counts(graph)
 
     # ---- Eq. 1 split between the layer-0 feature cache and the (transient,
     # one-live-at-a-time) embedding cache, from probed chunk gather laps.
@@ -358,27 +372,42 @@ def run_layerwise(
     if total_bytes > 0 and num_layers > 1:
         alloc = allocation
         if alloc is None:
-            probe_ids = plan.chunks[0].device_ids
-            probe_kw = dict(use_kernel=on_cuda, row_block=ROW_BLOCK if on_cuda else None)
-            t_feat = _probe_gather_seconds(pipe.caches.store, probe_ids, **probe_kw)
-            ghost = plain_feature_store(
-                torch.zeros((n, embed_width), dtype=torch.float32, pin_memory=on_cuda), device=dev
-            )
-            t_embed = _probe_gather_seconds(ghost, probe_ids, **probe_kw)
-            del ghost
-            alloc = allocate_layerwise_capacity(
-                [t_feat],
-                [t_embed],
-                total_bytes,
-                feat_need_bytes=dataset.features.nbytes,
-                embed_need_bytes=n * embed_row_bytes,
-            )
+            with tracer.span("probe", lane="layers") as probe:
+                probe_ids = plan.chunks[0].device_ids
+                probe_kw = dict(
+                    use_kernel=on_cuda, row_block=ROW_BLOCK if on_cuda else None, tracer=tracer
+                )
+                t_feat = _probe_gather_seconds(pipe.caches.store, probe_ids, **probe_kw)
+                ghost = plain_feature_store(
+                    torch.zeros((n, embed_width), dtype=torch.float32, pin_memory=on_cuda),
+                    device=dev,
+                )
+                t_embed = _probe_gather_seconds(ghost, probe_ids, **probe_kw)
+                del ghost
+                alloc = allocate_layerwise_capacity(
+                    [t_feat],
+                    [t_embed],
+                    total_bytes,
+                    feat_need_bytes=dataset.features.nbytes,
+                    embed_need_bytes=n * embed_row_bytes,
+                )
+                if tracer.enabled:
+                    probe.args = {
+                        "t_feat_s": t_feat,
+                        "t_embed_s": t_embed,
+                        "feat_bytes": alloc.feat_bytes,
+                        "embed_bytes": alloc.embed_bytes,
+                    }
         embed_bytes = alloc.embed_bytes
         # Delta re-fill the layer-0 cache for the layer-wise access pattern
         # at its new share.  The pipe's own store is NOT changed.
-        feat_store, _ = refresh_feature_cache(pipe.caches.store, access_counts, alloc.feat_bytes)
+        with tracer.span("refill", lane="layers"):
+            feat_store, _ = refresh_feature_cache(
+                pipe.caches.store, access_counts, alloc.feat_bytes
+            )
     elif total_bytes > 0:  # single layer: no intermediates, whole budget to feats
-        feat_store, _ = refresh_feature_cache(pipe.caches.store, access_counts, total_bytes)
+        with tracer.span("refill", lane="layers"):
+            feat_store, _ = refresh_feature_cache(pipe.caches.store, access_counts, total_bytes)
     prep_seconds = time.perf_counter() - t_prep
 
     clock = StageClock(overlap=depth > 1)
@@ -400,7 +429,8 @@ def run_layerwise(
         out_dim = int(params[layer]["w_self"].shape[1])
         # The spill table: pinned beside a card, so the next layer's
         # embedding store reads its misses over UVA without another copy.
-        out_host = torch.empty((n, out_dim), dtype=torch.float32, pin_memory=on_cuda)
+        with tracer.span("spill-alloc", lane="layers"):
+            out_host = torch.empty((n, out_dim), dtype=torch.float32, pin_memory=on_cuda)
         pad_id = max(store.pad_node_id(), 0)
         hits_key = "feat_hits" if layer == 0 else "embed_hits"
         lookups_key = "feat_lookups" if layer == 0 else "embed_lookups"
@@ -450,9 +480,11 @@ def run_layerwise(
         def on_retire(ctx, out_host=out_host, hk=hits_key, lk=lookups_key):
             spec = ctx.payload
             t0 = time.perf_counter()
-            out_host[spec.lo : spec.lo + spec.cnt].copy_(ctx.outputs["compute"][: spec.cnt])
+            with tracer.span("sync:spill"):
+                out_host[spec.lo : spec.lo + spec.cnt].copy_(ctx.outputs["compute"][: spec.cnt])
             state["spill_s"] += time.perf_counter() - t0
-            state[hk] += int(ctx.outputs["gather"][1])
+            with tracer.span("sync:hits"):
+                state[hk] += int(ctx.outputs["gather"][1])
             state[lk] += spec.cnt + spec.n_edges
 
         executor = PipelinedExecutor(
@@ -472,14 +504,17 @@ def run_layerwise(
         # (a kernel's first launch loads its library; cuBLAS sets up on its
         # first product).  Eager torch compiles nothing per bucket shape.
         first = plan.chunks[0]
-        feats, _ = store.gather(
-            chunk_ids(first),
-            use_kernel=use_kernel,
-            gather_buffers=gather_buffers,
-            row_block=row_block,
-        )
-        block_until_ready(layer_fn(first, feats))
-        del feats
+        with tracer.span("warm", lane="layers", args={"layer": layer} if tracer.enabled else None):
+            feats, _ = store.gather(
+                chunk_ids(first),
+                use_kernel=use_kernel,
+                gather_buffers=gather_buffers,
+                row_block=row_block,
+            )
+            warm_out = layer_fn(first, feats)
+            with tracer.span("sync:warm"):
+                block_until_ready(warm_out)
+            del feats, warm_out
         with tracer.span(
             f"layer {layer}",
             lane="layers",

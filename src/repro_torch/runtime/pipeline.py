@@ -50,6 +50,16 @@ stage laps *and* its retire-boundary drains to that stream's own
 per-stream state (RNG, reuse maps, hit counters) through ``ctx.stream``,
 so the serial-equivalence guarantee above holds *per stream* — the
 foundation of the multi-stream serving layer (runtime/gnn_serve.py).
+
+Trace
+-----
+With a tracer (core/trace.py), each item's host time is in four kinds of
+span: ``admit`` (pulling the item, lane ``executor``), one span per stage
+and ``retire`` (the drains and ``on_retire``) on the batch's slot lane,
+and the ``batch`` span around the batch's stages and retire.  At depth
+> 1 each stage's drain is a wait span, ``drain:<stage>``, inside
+``retire``; in serial mode the stage's synchronize is inside its stage
+span and its lap.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ class _Drain:
 
 
 DRAIN = _Drain()
+_END = object()  # the item iterator is spent
 
 
 def _stream_label(stream: Any) -> Any:
@@ -235,8 +246,16 @@ class PipelinedExecutor:
         retired: list[BatchContext] = []
         tracer = self.tracer
         index = 0
+        items = iter(items)
         try:
-            for item in items:
+            while True:
+                # Pulling the next item is host work of its own (the
+                # admission generator, the seeds' copy to the card); it
+                # has no window slot yet, so it has a lane of its own.
+                with tracer.span("admit", lane="executor"):
+                    item = next(items, _END)
+                if item is _END:
+                    break
                 if item is DRAIN:
                     while window:
                         retired.append(self._retire(window.popleft()))
@@ -299,17 +318,18 @@ class PipelinedExecutor:
         clock = self._clock(ctx)
         tracer = self.tracer
         lane = f"slot {ctx.slot}" if tracer.enabled else "slot 0"
-        if clock.overlap:
-            # Drain every stage's sync value, in stage order, attributing
-            # each wait to its own stage — otherwise in-flight work from
-            # earlier stages would be waited on untimed inside on_retire
-            # and the stage totals would under-count the loop's wall clock.
-            for st in self.stages:
-                if st.sync is not None:
-                    with tracer.span(f"drain:{st.name}" if tracer.enabled else "drain", lane=lane):
-                        clock.drain(st.name, st.sync(ctx))
-        if self.on_retire is not None:
-            self.on_retire(ctx)
+        with tracer.span("retire", lane=lane):
+            if clock.overlap:
+                # Drain every stage's sync value, in stage order, attributing
+                # each wait to its own stage — otherwise in-flight work from
+                # earlier stages would be waited on untimed inside on_retire
+                # and the stage totals would under-count the loop's wall clock.
+                for st in self.stages:
+                    if st.sync is not None:
+                        with tracer.span(f"drain:{st.name}" if tracer.enabled else "drain"):
+                            clock.drain(st.name, st.sync(ctx))
+            if self.on_retire is not None:
+                self.on_retire(ctx)
         if tracer.enabled:
             # The batch's enclosing span: dispatch start → retired.  Slot
             # lanes carry one such span per in-flight batch, so stacked

@@ -19,7 +19,7 @@ import time
 
 import torch
 
-__all__ = ["StageClock", "Stopwatch", "block_until_ready"]
+__all__ = ["StageClock", "block_until_ready"]
 
 
 def _cuda_devices(value, out: set) -> None:
@@ -96,41 +96,6 @@ class StageClock:
     def _lap(self, name: str, dt: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + dt
         self.laps.setdefault(name, []).append(dt)
-
-    def total(self, name: str) -> float:
-        return self.totals.get(name, 0.0)
-
-
-class Stopwatch:
-    """Accumulates named wall-clock durations (seconds)."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def track(self, name: str, *, sync: object = None):
-        """Time one block.  ``sync`` is a device value — or, as in
-        :meth:`StageClock.stage`, a callable producing one — blocked on
-        before the timer stops, so asynchronously launched work is charged
-        to the block that launched it."""
-        t0 = time.perf_counter()
-        ok = False
-        try:
-            yield
-            ok = True
-        finally:
-            if ok and sync is not None:
-                value = sync() if callable(sync) else sync
-                if value is not None:
-                    block_until_ready(value)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def add(self, name: str, seconds: float) -> None:
-        self.totals[name] = self.totals.get(name, 0.0) + seconds
-        self.counts[name] = self.counts.get(name, 0) + 1
 
     def total(self, name: str) -> float:
         return self.totals.get(name, 0.0)
