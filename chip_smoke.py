@@ -45,7 +45,21 @@ whose errors is caught:
    edge shapes of tests/test_kernels.py and at the main path's
    first-layer shape ``[180224, 5, 100]`` (1,081,344 frontier rows
    reduced to 180,224 destination nodes), timed beside ``ref.py``,
-   ``x.sum(1)`` and its bytes bound;
+   ``x.sum(1)`` and its bytes bound; then its indexed form
+   (``seg_agg_indexed``, layer 0 reading the frontier's distinct rows
+   through the inverse map) at the benchmark's offline layer 0: 4096
+   seeds at fan-outs 15,10,5 give 270,336 destinations of 16 rows, read
+   from a table of ogbn-products' 2,449,029 rows of F = 100 (GraphSAGE)
+   and of Reddit's 232,965 rows of F = 602 (GCN) by uniform ids.  Self
+   rows must equal ``ref.py``'s; the sums must lie within float32
+   summation's bound of the float64 sum, (fanout + 2) x 2^-24 x the sum
+   of magnitudes (the largest gap to ``ref.py`` is printed).  Timed
+   beside ``ref.py``, the expansion ``x[idx]`` with the fanout sum it
+   replaces (the library time) and its bytes bound (each distinct row
+   read once, the index, the outputs).  Then its dense form (no index,
+   the routes without dedup) on the expanded rows: the same bits as the
+   indexed form, timed beside the split and ``.sum(1)`` (and GCN's self
+   add and divide) that layer 0 ran before it;
 6. B5, ``flash_attention``: against ``ref.py`` on the cases of
    tests/test_kernels.py in float32 and bfloat16, GQA included, and at
    Gemma-2 27B's attention shape (B 1, Hq 32, Hkv 16, D 128, bf16,
@@ -73,7 +87,9 @@ whose errors is caught:
    depth 2, and the table route at depth 1 — one prepared pipeline, one
    seed; logits and hit counts must be identical, and the launch
    counters of kernels #1 and #2 (set to 0 just before each route and
-   read just after) must be > 0;
+   read just after) must be > 0; every route's layer 0 must launch
+   ``seg_agg_indexed`` once per batch and the report count each batch
+   (``fused_batches``);
 9. the CLI, as subprocesses: ``--use-kernel --prefetch``, ``--policy
    rain``, ``--mode layerwise --scale 0.01``, and serving at the default
    ``--scale 0.004``: ``--streams 4 --batches-per-stream 2``, ``--arrival
@@ -255,6 +271,10 @@ BURST_REQUESTS = 8  # the burst trace: 8 at t = 0 beside 16 steady ones
 LAYERWISE_CHUNK = 4096  # the reference CLI's default chunk
 LAYERWISE_CUT = 0.1  # the scale of the table-route layer-wise check
 SEG_SHAPE = (180_224, 5, 100)  # first GraphSAGE layer: 1024*16*11 dst nodes, fanout 5, F 100
+# seg_agg_indexed at the benchmark's offline layer 0 (4096*6*11 destinations,
+# fanout 15): (label, F, table rows, mode) for ogbn-products and Reddit.
+INDEXED_DST, INDEXED_FANOUT = 270_336, 15
+INDEXED_CASES = (("products", 100, 2_449_029, "sage"), ("reddit", 602, 232_965, "gcn"))
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
 # Phase 15, LM serving (src/repro/configs/gemma_2b.py at full size, bf16):
@@ -342,6 +362,7 @@ REPLACES = {
     "cached_gather_blocks": "src/repro/kernels/cached_gather/kernel.py:347",
     "cached_gather_select": "src/repro/kernels/cached_gather/kernel.py:500",
     "seg_agg": "src/repro/kernels/seg_agg/kernel.py:32",
+    "seg_agg_indexed": "none: fuses src/repro/models/gnn/models.py:79 with seg_agg",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
 }
 SOURCES = {
@@ -349,6 +370,7 @@ SOURCES = {
     "cached_gather_blocks": "src/repro_torch/csrc/cached_gather.cu",
     "cached_gather_select": "src/repro_torch/csrc/cached_gather.cu",
     "seg_agg": "src/repro_torch/csrc/seg_agg.cu",
+    "seg_agg_indexed": "src/repro_torch/csrc/seg_agg.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s and
@@ -711,7 +733,91 @@ def seg_agg_phase(hbm: float) -> tuple[dict, float]:
                bound_ms=1e3 * nbytes / hbm, bytes=nbytes)
     log(f"  [{s}, 5, {f}] f32 sum: kernel {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
         f"({nbytes} B)  ref.py {row['plain_ms']:.4f} ms  x.sum(1) {row['library_ms']:.4f} ms")
+    row["indexed"] = [indexed_row(gen, hbm, *case) for case in INDEXED_CASES]
     return row, max_err
+
+
+def indexed_row(gen, hbm: float, label: str, f: int, rows: int, mode: str) -> dict:
+    """seg_agg_indexed at one offline cell's layer 0: parity with ref.py and
+    its times beside ref.py, the expansion with the fanout sum it replaces,
+    and its bytes bound; then its dense form (no index, the routes without
+    dedup) beside the split and sum that layer 0 ran before it."""
+    import torch
+
+    from repro_torch.kernels.seg_agg import kernel as sa
+    from repro_torch.kernels.seg_agg.ref import seg_agg_indexed_ref
+
+    n, fo = INDEXED_DST, INDEXED_FANOUT
+    table = torch.randn((rows, f), generator=gen, device="cuda")
+    idx = torch.randint(0, rows, (n * (1 + fo),), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    kw = dict(num_dst=n, fanout=fo, mode=mode)
+
+    def parts(out):  # sage gives (self rows, sums), gcn the mean
+        return out if mode == "sage" else (out,)
+
+    # Self rows are copies: equal to ref.py's.  The sum against the float64
+    # one within float32 summation's bound in any order, (fanout + 2) *
+    # 2**-24 over the sum of magnitudes; the largest gap to ref.py
+    # (float32, torch's own order) is printed.
+    got = parts(sa.seg_agg_indexed(table, idx, **kw))
+    want = parts(seg_agg_indexed_ref(table, idx, **kw))
+    if mode == "sage" and not torch.equal(got[0], want[0]):
+        raise AssertionError(f"seg_agg_indexed ({label}): self rows differ from ref.py")
+    exact = parts(seg_agg_indexed_ref(table.double(), idx, **kw))[-1]
+    mags = parts(seg_agg_indexed_ref(table.abs().double(), idx, **kw))[-1]
+    if not bool(((got[-1].double() - exact).abs() <= (fo + 2) * 2.0**-24 * mags).all()):
+        raise AssertionError(f"seg_agg_indexed ({label}) beyond float32 summation's bound")
+    err = float((got[-1] - want[-1]).abs().max())
+    del want, exact, mags
+    idx64 = idx.long()
+
+    def expand_then_sum():
+        h = table[idx64]
+        return h[n:].view(n, fo, f).sum(1)
+
+    distinct = int(torch.unique(idx).numel())
+    outs = 2 if mode == "sage" else 1
+    nbytes = (distinct * f + n * outs * f) * 4 + idx.numel() * 4
+    positions_bytes = (idx.numel() * f + n * outs * f) * 4 + idx.numel() * 4
+    out = dict(label=label, shape=[n, fo, f], table_rows=rows, mode=mode, max_abs_err=err,
+               ms=cuda_ms(lambda: sa.seg_agg_indexed(table, idx, **kw), reps=10),
+               plain_ms=cuda_ms(lambda: seg_agg_indexed_ref(table, idx, **kw), reps=3),
+               library_ms=cuda_ms(expand_then_sum, reps=3),
+               distinct_rows=distinct, bytes=nbytes, bound_ms=1e3 * nbytes / hbm,
+               every_position_bytes=positions_bytes,
+               every_position_ms=1e3 * positions_bytes / hbm)
+    log(f"  indexed {label} [{n} x {1 + fo}, F {f}] {mode}: kernel {out['ms']:.4f} ms  bound "
+        f"{out['bound_ms']:.4f} ms ({distinct} distinct rows, {nbytes} B; every position read "
+        f"{out['every_position_ms']:.4f} ms)  ref.py {out['plain_ms']:.4f} ms  x[idx] + sum "
+        f"{out['library_ms']:.4f} ms; max abs err {err:.3g}")
+
+    # The dense form reads the expanded rows in place: the same bits as the
+    # indexed form.  Before it, layer 0 summed them with split_frontier and
+    # .sum(1) (GCN then added the self rows and divided; GraphSAGE's FC
+    # took the self rows as a view).
+    dense = table[idx64]
+    del table, idx, idx64
+    got_dense = parts(sa.seg_agg_indexed(dense, None, **kw))
+    if not all(torch.equal(a, b) for a, b in zip(got, got_dense)):
+        raise AssertionError(f"seg_agg_indexed ({label}): dense form differs from indexed form")
+    del got, got_dense
+
+    def split_then_sum():
+        agg = dense[n:].view(n, fo, f).sum(1)
+        return agg if mode == "sage" else (dense[:n] + agg) / (fo + 1)
+
+    # GraphSAGE's self rows are read in place (a view): neither read nor
+    # written here.
+    dense_bytes = n * (fo + (mode == "gcn") + 1) * f * 4
+    out.update(dense_ms=cuda_ms(lambda: sa.seg_agg_indexed(dense, None, **kw), reps=10),
+               dense_before_ms=cuda_ms(split_then_sum, reps=10), dense_bytes=dense_bytes,
+               dense_bound_ms=1e3 * dense_bytes / hbm)
+    log(f"  dense {label} [{n} x {1 + fo}, F {f}] {mode}: kernel {out['dense_ms']:.4f} ms  "
+        f"bound {out['dense_bound_ms']:.4f} ms ({dense_bytes} B)  split + sum(1)"
+        f"{' + self, / n' if mode == 'gcn' else ''} {out['dense_before_ms']:.4f} ms")
+    del dense
+    return out
 
 
 def kept_pairs(sq: int, sk: int, causal: bool, window: int | None) -> int:
@@ -1108,6 +1214,7 @@ def main_path_phase(eng) -> dict:
 
     from repro_torch.core.config import EngineConfig
     from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.kernels.seg_agg import kernel as sa
 
     phase(f"8. main path: GraphSAGE 3x128, fanouts {FANOUTS}, batch {BATCH}, "
           f"{MAIN_BATCHES} batches per route")
@@ -1127,15 +1234,23 @@ def main_path_phase(eng) -> dict:
     counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
     torch.cuda.reset_peak_memory_stats()
     reports, outputs, route_launches, hits = {}, {}, {}, {}
+    indexed_total = 0
     for label, cfg in routes.items():
         # Counts set to 0 just before each route and read just after it;
         # the run is MAIN_BATCHES batches plus one warmup batch.
         for fn in counters:
             fn.launches = 0
+        sa.seg_agg_indexed.launches = 0
         t0 = time.perf_counter()
         rep = eng.run(config=cfg, max_batches=MAIN_BATCHES, collect_outputs=True)
         wall = time.perf_counter() - t0
         route_launches[label] = {fn.__name__: fn.launches for fn in counters}
+        indexed = sa.seg_agg_indexed.launches
+        if indexed != MAIN_BATCHES + 1 or rep.fused_batches != MAIN_BATCHES:
+            raise AssertionError(f"{label}: seg_agg_indexed launched {indexed} times, "
+                                 f"fused_batches {rep.fused_batches}, for {MAIN_BATCHES} "
+                                 f"batches and a warmup")
+        indexed_total += indexed
         out = np.stack(eng.last_outputs)
         if out.shape != (MAIN_BATCHES, BATCH, eng.dataset.spec.num_classes) or not np.isfinite(
             out
@@ -1168,11 +1283,13 @@ def main_path_phase(eng) -> dict:
                                      reports[label].get("prefetched_rows", 0) > 0):
             raise AssertionError(f"{label}: prefetch {reports[label]['prefetch']}, "
                                  f"prefetched_rows {reports[label].get('prefetched_rows')}")
-    log(f"  logits and hit counts identical across {sorted(outputs)}")
+    log(f"  logits and hit counts identical across {sorted(outputs)}; seg_agg_indexed once "
+        f"per batch on every route")
     if launches["cached_gather"] == 0 or launches["cached_gather_blocks"] == 0:
         raise AssertionError(f"a main-path kernel was never launched: {launches}")
     return {"reports": reports, "launches": launches, "route_launches": route_launches,
-            "launches_per_batch": per_batch, "max_memory_allocated": peak}
+            "launches_per_batch": per_batch, "max_memory_allocated": peak,
+            "seg_agg_indexed_launches": indexed_total}
 
 
 def counted_run(run, counters) -> tuple[object, dict]:
@@ -3652,6 +3769,12 @@ def main() -> int:
          "max_abs_err": seg_err, "ms": seg_row["ms"], "plain_ms": seg_row["plain_ms"],
          "bound_ms": seg_row["bound_ms"], "bound_by": "bytes",
          "library_ms": seg_row["library_ms"]},
+        # One row per offline cell's layer 0; launches: phase 8's routes.
+        *({"name": "seg_agg_indexed", "route": "cuda", "source": SOURCES["seg_agg_indexed"],
+           "replaces": REPLACES["seg_agg_indexed"], "case": r["label"],
+           "launches": main_path["seg_agg_indexed_launches"], "max_abs_err": r["max_abs_err"],
+           "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": "bytes", "library_ms": r["library_ms"]} for r in seg_row["indexed"]),
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
         # launches: the ops path's, phases 15-17's LM serving runs, phase

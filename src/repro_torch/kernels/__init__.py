@@ -9,7 +9,9 @@ live in ``src/repro_torch/csrc/`` and are built at first use
 
   cached_gather/    DCI's two-source feature-row gather (hit -> hot table,
                     miss -> host table or the prefetched miss pack)
-  seg_agg/          padded-neighbourhood aggregation (GNN sum/mean)
+  seg_agg/          padded-neighbourhood aggregation (GNN sum/mean), and its
+                    indexed form: a sampled GNN's first layer reading the
+                    frontier's distinct rows through the inverse map
   flash_attention/  blocked online-softmax attention with causal,
                     sliding-window and logit-softcap variants
 """

@@ -14,7 +14,7 @@ from typing import Mapping
 
 import torch
 
-__all__ = ["sage_layer", "gcn_layer", "split_frontier"]
+__all__ = ["gcn_apply", "gcn_layer", "sage_apply", "sage_layer", "split_frontier"]
 
 
 def split_frontier(
@@ -26,13 +26,24 @@ def split_frontier(
     return self_part, nbr_part
 
 
+def sage_apply(
+    params: Mapping[str, torch.Tensor], self_h: torch.Tensor, agg: torch.Tensor
+) -> torch.Tensor:
+    """GraphSAGE's FCs over the self rows and the neighbour sums."""
+    return self_h @ params["w_self"] + agg @ params["w_nbr"] + params["b"]
+
+
+def gcn_apply(params: Mapping[str, torch.Tensor], mean: torch.Tensor) -> torch.Tensor:
+    """GCN's FC over the mean of {self} ∪ neighbors."""
+    return mean @ params["w_self"] + params["b"]
+
+
 def sage_layer(
     params: Mapping[str, torch.Tensor], h: torch.Tensor, num_dst: int, fanout: int
 ) -> torch.Tensor:
     """GraphSAGE: sum-aggregate neighbors, separate self/neighbor FCs."""
     self_h, nbr_h = split_frontier(h, num_dst, fanout)
-    agg = nbr_h.sum(dim=1)
-    return self_h @ params["w_self"] + agg @ params["w_nbr"] + params["b"]
+    return sage_apply(params, self_h, nbr_h.sum(dim=1))
 
 
 def gcn_layer(
@@ -40,5 +51,4 @@ def gcn_layer(
 ) -> torch.Tensor:
     """GCN: mean over {self} ∪ neighbors, single FC (divisor ``fanout + 1``)."""
     self_h, nbr_h = split_frontier(h, num_dst, fanout)
-    agg = (self_h + nbr_h.sum(dim=1)) / (fanout + 1)
-    return agg @ params["w_self"] + params["b"]
+    return gcn_apply(params, (self_h + nbr_h.sum(dim=1)) / (fanout + 1))

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.models.gnn.layers import gcn_layer, sage_layer
+from repro_torch.kernels.seg_agg.kernel import seg_agg_indexed
+from repro_torch.models.gnn.layers import gcn_apply, gcn_layer, sage_apply, sage_layer
 
 __all__ = ["GNN", "MODELS", "forward", "forward_layer", "init_params", "params_from_jax"]
 
@@ -87,31 +88,53 @@ def forward(
     the seed count follows from its row count and ``fanouts``.
     ``inverse_index`` switches to the unique-frontier form: ``input_feats``
     then holds one row per DISTINCT input node (possibly pow2-padded) and
-    the ``[self | neighbors]`` layout is rebuilt by one gather,
-    ``input_feats[inverse_index]``, so the logits are the same bits as on
-    the duplicate-carrying path."""
+    ``inverse_index`` (int32) maps the ``[self | neighbors]`` layout onto
+    them.  Layer 0 reads its rows through the index inside its
+    self-and-fanout sum (:func:`~repro_torch.kernels.seg_agg.kernel.seg_agg_indexed`:
+    one kernel on a card, so the duplicate rows are never written; on the
+    CPU the reference's ``input_feats[inverse_index]`` and then the layer's
+    sum), so the logits are the same bits as on the duplicate-carrying
+    path."""
     _full_fp32()
     rev = tuple(reversed(fanouts))  # expansion order used by sample_blocks
     mult = 1
     for f in rev:
         mult *= 1 + f
-    if inverse_index is not None:
-        input_feats = input_feats[inverse_index.to(torch.int64)]
-    num_seeds = input_feats.shape[0] // mult
+    positions = input_feats.shape[0] if inverse_index is None else inverse_index.shape[0]
+    num_seeds = positions // mult
 
     sizes = [num_seeds]
     for f in rev:
         sizes.append(sizes[-1] * (1 + f))
 
     layer_fn = sage_layer if model == "graphsage" else gcn_layer
-    h = input_feats
     n_layers = len(fanouts)
     # Walk from the deepest frontier inward; model layer 0 consumes raw feats.
     for li, l in enumerate(range(n_layers - 1, -1, -1)):
-        h = layer_fn(params[li], h, sizes[l], rev[l])
+        if li == 0:
+            h = _first_layer(params[0], input_feats, inverse_index, model, sizes[l], rev[l])
+        else:
+            h = layer_fn(params[li], h, sizes[l], rev[l])
         if li < n_layers - 1:
             h = torch.relu(h)
     return h  # [num_seeds, num_classes]
+
+
+def _first_layer(
+    layer_params: Mapping[str, torch.Tensor],
+    rows: torch.Tensor,
+    index: torch.Tensor | None,
+    model: str,
+    num_dst: int,
+    fanout: int,
+) -> torch.Tensor:
+    """Layer 0, its aggregation reading ``rows`` through ``index``; the FCs
+    as in :func:`sage_layer` / :func:`gcn_layer`."""
+    if model == "graphsage":
+        self_h, agg = seg_agg_indexed(rows, index, num_dst=num_dst, fanout=fanout, mode="sage")
+        return sage_apply(layer_params, self_h, agg)
+    mean = seg_agg_indexed(rows, index, num_dst=num_dst, fanout=fanout, mode="gcn")
+    return gcn_apply(layer_params, mean)
 
 
 def forward_layer(

@@ -67,6 +67,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.sampling import pow2_bucket, sample_blocks
 from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+from repro_torch.kernels.seg_agg.kernel import seg_agg_indexed
 from repro_torch.models.gnn.models import GNN, init_params
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
 from repro_torch.utils.timing import StageClock, block_until_ready
@@ -153,6 +154,9 @@ class InferenceReport:
     dedup: bool = False
     unique_rows: int = 0
     gathered_rows: int = 0
+    # Batches whose model layer 0 read its rows through the indexed
+    # aggregation kernel (every batch on a card, none on the CPU).
+    fused_batches: int = 0
     # Online-refresh accounting (empty/None with refresh off, leaving the
     # report as it was):
     refresh_events: list = dataclasses.field(default_factory=list)
@@ -228,6 +232,8 @@ class InferenceReport:
             out["unique_rows"] = self.unique_rows
             out["gathered_rows"] = self.gathered_rows
             out["duplication_factor"] = self.duplication_factor
+        if self.fused_batches:
+            out["fused_batches"] = self.fused_batches
         if self.refresh_events:
             # Per-epoch rates beside the lifetime ones: a lifetime mean
             # hides the recovery a refresh exists to produce.
@@ -304,6 +310,7 @@ class StreamRuntime:
         self.prefetched_rows = 0
         self.unique_rows = 0  # sum of per-batch distinct input nodes (dedup)
         self.gathered_rows = 0  # rows the feature stage actually gathered
+        self.fused_batches = 0  # batches whose layer 0 launched seg_agg_indexed
         # Per-cache-epoch counters: epoch -> [adj_hits, adj_lookups,
         # feat_hits, feat_lookups, batches].  With refresh off everything
         # lands in epoch 0.
@@ -573,8 +580,11 @@ class StreamRuntime:
     def compute(self, ctx):
         feats = ctx.outputs["feature"][0]
         inverse = self._dedup_view(ctx)[0].inverse if self.dedup else None
+        launches = seg_agg_indexed.launches
         with torch.inference_mode():
-            return self.model(feats, inverse_index=inverse)
+            out = self.model(feats, inverse_index=inverse)
+        self.fused_batches += seg_agg_indexed.launches - launches
+        return out
 
     def _read(self, value) -> int:
         """``int(value)``: one blocking device-to-host read, traced as a
@@ -1071,6 +1081,7 @@ class GNNInferenceEngine:
             dedup=rt.dedup,
             unique_rows=rt.unique_rows,
             gathered_rows=rt.gathered_rows,
+            fused_batches=rt.fused_batches,
             refresh_events=list(manager.events) if manager is not None else [],
             epoch_hits=rt.epoch_hit_rates() if manager is not None else None,
             config=resolved,

@@ -108,6 +108,17 @@ def test_slice_matches_reference_engine(slice_pair):
         )
 
 
+@pytest.mark.parametrize("dedup", [False, True])
+def test_no_batch_takes_the_indexed_layer_on_the_cpu(slice_pair, dedup):
+    """The engine counts the batches whose layer 0 launched the indexed
+    aggregation kernel: none on the CPU, where the report leaves the
+    count out of its summary."""
+    *_, eng, draws = slice_pair
+    rep = eng.run(config=EngineConfig(dedup=dedup), max_batches=BATCHES, draws=draws)
+    assert rep.num_batches == BATCHES and rep.fused_batches == 0
+    assert "fused_batches" not in rep.summary()
+
+
 @pytest.mark.parametrize("prefetch", [False, True])
 @pytest.mark.parametrize("use_kernel", [False, True])
 @pytest.mark.parametrize("dedup", [False, True])

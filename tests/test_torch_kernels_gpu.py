@@ -31,7 +31,7 @@ from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_split_ref,
                                                       expand_kv)
 from repro_torch.kernels.seg_agg import kernel as sa
-from repro_torch.kernels.seg_agg.ref import seg_agg_ref
+from repro_torch.kernels.seg_agg.ref import seg_agg_indexed_ref, seg_agg_ref
 from repro_torch.models.lm import attention as lm_attn
 from repro_torch.models.lm import model as lm_model
 from repro_torch.models.lm import moe as lm_moe
@@ -663,6 +663,116 @@ def test_seg_agg_odd_pitch_empty_and_refusals(cuda):
         from repro_torch.kernels import aggregate_neighbors
 
         aggregate_neighbors(x)
+
+
+# The indexed form at the offline cells' layer 0 (4096 seeds at fan-outs
+# 15,10,5: 270,336 destinations of 16 rows each, F = 100 and 602, ids over
+# the graphs' node counts), and shapes that take every vector width (16,
+# 8, 4 B), rows narrower than a warp and more than one chunk of slots.
+# Self rows are copies and must be equal.  Sums are held to the float64
+# sum within the bound of float32 summation in any order, (fanout + 2) ulps
+# of 2**-24 over the same sum of magnitudes: the plain version sums in
+# torch's reduction order, not in slot order, and at the cells' shapes
+# differs from the kernel by up to 1.9e-6 (rtol and atol 1e-6 fail on
+# about 1 element in 10**5, where terms cancel).
+INDEXED_SHAPES = [(270_336, 15, 100, 2_449_029), (270_336, 15, 602, 232_965),
+                  (4096, 10, 101, 5000), (1000, 15, 3, 300), (1000, 17, 36, 900),
+                  (999, 33, 100, 700), (513, 5, 602, 400), (77, 1, 24, 50), (50, 40, 16, 64)]
+
+
+@pytest.mark.parametrize("mode", ["sage", "gcn"])
+@pytest.mark.parametrize("num_dst,fanout,f,rows", INDEXED_SHAPES)
+def test_seg_agg_indexed_matches_ref(cuda, mode, num_dst, fanout, f, rows):
+    gen = torch.Generator(device=cuda).manual_seed(num_dst + f)
+    table = torch.full((rows + 3, f), float("nan"), device=cuda)  # the last 3 rows are pad
+    table[:rows] = torch.randn((rows, f), generator=gen, device=cuda)
+    idx = torch.randint(0, rows, (num_dst * (1 + fanout),), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(num_dst=num_dst, fanout=fanout, mode=mode)
+    for index, x in ((idx, table), (None, table[idx.long()])):
+        before = sa.seg_agg_indexed.launches
+        got = sa.seg_agg_indexed(x, index, **kw)
+        torch.cuda.synchronize()
+        assert sa.seg_agg_indexed.launches == before + 1
+        exact = seg_agg_indexed_ref(x.double(), index, **kw)
+        mags = seg_agg_indexed_ref(x.abs().double(), index, **kw)
+        got, exact, mags = (got, exact, mags) if mode == "sage" else ((got,), (exact,), (mags,))
+        if mode == "sage":
+            assert torch.equal(got[0], exact[0].float())
+        g, w, m = got[-1], exact[-1], mags[-1]
+        assert g.shape == (num_dst, f) and not torch.isnan(g).any()
+        assert bool(((g.double() - w).abs() <= (fanout + 2) * 2.0**-24 * m).all())
+        if index is not None:
+            indexed = got
+        else:  # the dense form of the same positions: the same bits
+            assert all(torch.equal(a, b) for a, b in zip(indexed, got))
+        del x, exact, mags
+
+
+def test_seg_agg_indexed_odd_base_empty_and_refusals(cuda):
+    table = torch.randn(41 * 64 + 1, device=cuda)[1:].view(41, 64)  # a base 4 bytes past 16
+    idx = torch.randint(0, 41, (7 * 4,), device=cuda, dtype=torch.int32)
+    self_h, agg = sa.seg_agg_indexed(table, idx, num_dst=7, fanout=3, mode="sage")
+    want = seg_agg_indexed_ref(table, idx, num_dst=7, fanout=3, mode="sage")
+    assert torch.equal(self_h, want[0])
+    torch.testing.assert_close(agg, want[1], rtol=1e-6, atol=1e-6)
+    dense = table[idx.long()]  # the dense form's self rows: a view of its input
+    self_d, agg_d = sa.seg_agg_indexed(dense, None, num_dst=7, fanout=3, mode="sage")
+    assert self_d.data_ptr() == dense.data_ptr() and torch.equal(agg_d, agg)
+    empty = sa.seg_agg_indexed(table, idx[:0], num_dst=0, fanout=3, mode="gcn")
+    assert empty.shape == (0, 64)
+    with pytest.raises(ValueError, match="float32"):
+        sa.seg_agg_indexed(table.double(), idx, num_dst=7, fanout=3, mode="gcn")
+    with pytest.raises(ValueError, match="int32"):
+        sa.seg_agg_indexed(table, idx.long(), num_dst=7, fanout=3, mode="gcn")
+    with pytest.raises(ValueError, match="idx on"):
+        sa.seg_agg_indexed(table, idx.cpu(), num_dst=7, fanout=3, mode="gcn")
+
+
+@pytest.mark.parametrize("model", ["graphsage", "gcn"])
+def test_forward_inverse_index_equals_the_dense_form_on_the_card(cuda, model):
+    """Layer 0 through seg_agg_indexed, with the inverse map and in the
+    dense form: the same bits on the card, and close to the CPU's
+    expansion-then-sum (the widest gap within 2e-5 of the largest logit,
+    the benchmark's ``logit_gap`` limit: the card's matmuls and sums run
+    in other orders than the CPU's)."""
+    from repro_torch.models.gnn import models as gm
+
+    fanouts = (15, 10, 5)
+    gen = torch.Generator().manual_seed(7)
+    params = gm.init_params(gen, model, 100, 47, device=cuda)
+    positions = 64 * 16 * 11 * 6
+    uniq = torch.randn((positions // 3 + 11, 100), generator=gen)
+    uniq[-11:] = float("nan")  # pad rows, never read
+    inverse = torch.randint(0, positions // 3, (positions,), generator=gen, dtype=torch.int32)
+    before = sa.seg_agg_indexed.launches
+    got = gm.forward(params, uniq.to(cuda), model=model, fanouts=fanouts,
+                     inverse_index=inverse.to(cuda))
+    dense = gm.forward(params, uniq[inverse.long()].to(cuda), model=model, fanouts=fanouts)
+    torch.cuda.synchronize()
+    assert sa.seg_agg_indexed.launches == before + 2
+    assert got.shape == (64, 47) and torch.equal(got, dense)
+    cpu = gm.forward([{k: v.cpu() for k, v in p.items()} for p in params], uniq,
+                     model=model, fanouts=fanouts, inverse_index=inverse)
+    assert float((got.cpu() - cpu).abs().max() / cpu.abs().max()) <= 2e-5
+
+
+def test_engine_counts_every_batch_through_the_indexed_layer(cuda):
+    """On the kernel + dedup route (and the dense one), every batch's
+    layer 0 launches seg_agg_indexed and the report counts it."""
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    outs = []
+    for dedup in (True, False):
+        before = sa.seg_agg_indexed.launches
+        rep = eng.run(config=EngineConfig(use_kernel=True, dedup=dedup, pipeline_depth=2),
+                      max_batches=4, collect_outputs=True, warmup=False)
+        assert rep.fused_batches == rep.num_batches == 4
+        assert sa.seg_agg_indexed.launches - before == 4
+        assert rep.summary()["fused_batches"] == 4
+        outs.append(np.stack(eng.last_outputs))
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=0):

@@ -16,9 +16,10 @@ import torch
 
 from repro.kernels.seg_agg.kernel import seg_agg as jax_seg_agg
 from repro.kernels.seg_agg.ref import seg_agg_ref as jax_seg_agg_ref
+from repro.models.gnn.layers import split_frontier as jax_split_frontier
 from repro_torch.kernels import aggregate_neighbors
 from repro_torch.kernels.seg_agg import kernel as tk
-from repro_torch.kernels.seg_agg.ref import seg_agg_ref
+from repro_torch.kernels.seg_agg.ref import seg_agg_indexed_ref, seg_agg_ref
 
 torch.set_num_threads(1)
 
@@ -64,3 +65,99 @@ def test_seg_agg_cpu_route_and_errors():
         seg_agg_ref(x, mode="max")
     with pytest.raises(ValueError):
         tk.seg_agg(x[0])
+
+
+# ---------------------------------------------------------------- indexed form
+# A sampled layer's self-and-fanout aggregation read through the inverse
+# map: held to the JAX package's ``input_feats[inverse]`` followed by its
+# own layer split and sum.  Pad rows of the table are NaN, so one read
+# would show in every output it reaches.
+
+
+def _indexed_inputs(num_dst, fanout, f, dense, seed):
+    rng = np.random.default_rng(seed)
+    positions = num_dst * (1 + fanout)
+    if dense:
+        return rng.standard_normal((positions, f)).astype(np.float32), None
+    live = max(positions // 3, 1)
+    table = np.full((live + 5, f), np.nan, np.float32)  # rows past `live` are pad
+    table[:live] = rng.standard_normal((live, f))
+    return table, rng.integers(0, live, positions).astype(np.int32)
+
+
+def _jax_indexed(table, idx, num_dst, fanout, mode):
+    h = jnp.asarray(table) if idx is None else jnp.asarray(table)[jnp.asarray(idx)]
+    self_h, nbr_h = jax_split_frontier(h, num_dst, fanout)
+    if mode == "sage":
+        return np.asarray(self_h), np.asarray(nbr_h.sum(axis=1))
+    return (np.asarray((self_h + nbr_h.sum(axis=1)) / (fanout + 1)),)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("fanout", [1, 5, 15])
+@pytest.mark.parametrize("f", [3, 100, 602])
+@pytest.mark.parametrize("mode", ["sage", "gcn"])
+def test_seg_agg_indexed_matches_jax_inverse_then_layer_sum(mode, f, fanout, dense):
+    num_dst = 37
+    table, idx = _indexed_inputs(num_dst, fanout, f, dense, seed=f * 100 + fanout)
+    before = tk.seg_agg_indexed.launches
+    got = tk.seg_agg_indexed(
+        torch.from_numpy(table), None if idx is None else torch.from_numpy(idx),
+        num_dst=num_dst, fanout=fanout, mode=mode,
+    )
+    assert tk.seg_agg_indexed.launches == before  # the CPU route launches nothing
+    got = got if mode == "sage" else (got,)
+    want = _jax_indexed(table, idx, num_dst, fanout, mode)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == (num_dst, f) and g.dtype == torch.float32
+        assert not torch.isnan(g).any()
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-6)
+    # The dense form of the same positions gives the same bits.
+    if idx is not None:
+        dense_got = seg_agg_indexed_ref(torch.from_numpy(table[idx]), None, num_dst=num_dst,
+                                        fanout=fanout, mode=mode)
+        dense_got = dense_got if mode == "sage" else (dense_got,)
+        for g, d in zip(got, dense_got):
+            assert torch.equal(g, d)
+
+
+@pytest.mark.parametrize("mode", ["sage", "gcn"])
+@pytest.mark.parametrize("dense", [False, True])
+def test_seg_agg_indexed_no_destinations(mode, dense):
+    idx = None if dense else torch.empty(0, dtype=torch.int32)
+    rows = torch.empty((0 if dense else 4), 7)
+    got = tk.seg_agg_indexed(rows, idx, num_dst=0, fanout=5, mode=mode)
+    for g in got if mode == "sage" else (got,):
+        assert g.shape == (0, 7)
+
+
+def test_seg_agg_indexed_gcn_divides_by_fanout_plus_one():
+    """One destination, fanout 2: the mean is over {self} and both draws,
+    read in any order through the index."""
+    table = torch.tensor([[2.0, 2.0], [3.0, 0.0], [9.0, 9.0], [1.0, 1.0]])  # row 2 never read
+    idx = torch.tensor([1, 3, 0], dtype=torch.int32)  # self row 1, neighbours rows 3 and 0
+    mean = tk.seg_agg_indexed(table, idx, num_dst=1, fanout=2, mode="gcn")
+    torch.testing.assert_close(mean, torch.tensor([[2.0, 1.0]]), rtol=0, atol=0)
+    self_h, agg = tk.seg_agg_indexed(table, idx, num_dst=1, fanout=2, mode="sage")
+    torch.testing.assert_close(self_h, torch.tensor([[3.0, 0.0]]), rtol=0, atol=0)
+    torch.testing.assert_close(agg, torch.tensor([[3.0, 3.0]]), rtol=0, atol=0)
+
+
+def test_seg_agg_indexed_refusals():
+    table = torch.randn(10, 4)
+    idx = torch.zeros(3 * 6, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        tk.seg_agg_indexed(table, idx.long(), num_dst=3, fanout=5, mode="sage")
+    with pytest.raises(ValueError, match="idx must be"):
+        tk.seg_agg_indexed(table, idx[:-1], num_dst=3, fanout=5, mode="sage")
+    with pytest.raises(ValueError, match=r"\[R, F\]"):
+        tk.seg_agg_indexed(table[None], idx, num_dst=3, fanout=5, mode="sage")
+    with pytest.raises(ValueError, match="dense form"):
+        tk.seg_agg_indexed(table, None, num_dst=3, fanout=5, mode="gcn")
+    with pytest.raises(ValueError, match="mode"):
+        tk.seg_agg_indexed(table, idx, num_dst=3, fanout=5, mode="mean")
+    with pytest.raises(ValueError, match="fanout"):
+        tk.seg_agg_indexed(table, idx, num_dst=3, fanout=0, mode="gcn")
+    with pytest.raises(ValueError, match="mode"):
+        seg_agg_indexed_ref(table, idx, num_dst=3, fanout=5, mode="mean")
