@@ -27,6 +27,7 @@ import pathlib
 import numpy as np
 import torch
 
+from bench import models
 from bench import reference as ref
 
 __all__ = ["LIMITS", "compare"]
@@ -94,10 +95,10 @@ def _count_gap(out, replays) -> int:
     )
 
 
-def _forward(config, params, features, frontier, batch, tf32):
+def _forward(config, model, params, features, frontier, batch, tf32):
     with ref.precision(tf32):
         return ref.block_forward(
-            params, config["model"], features, frontier, batch, config["fanouts"],
+            params, model, features, frontier, batch, config["fanouts"],
             dtype=torch.float32 if tf32 else torch.float64,
         )
 
@@ -106,18 +107,18 @@ def compare(config, mix, data, params, out, seed, *, device, tf32=False):
     """``(numbers, counts)``: each compared number as ``(value, limit)``, and
     the reference's window counts the per-layer readers take."""
     kind = mix["kind"]
+    model = models.load(config["model"])
     col_ptr, rows, features, params = _inputs(data, params, device)
     rng = np.random.default_rng(seed)
     gap = Gap()
     counts = {}
     numbers = {}
     if kind == "layerwise":
-        exact = ref.full_forward(params, config["model"], col_ptr, rows, features)
+        exact = ref.full_forward(params, model, col_ptr, rows, features)
         if tf32:
             with ref.precision(True):
-                control = ref.full_forward(
-                    params, config["model"], col_ptr, rows, features, dtype=torch.float32
-                )
+                control = ref.full_forward(params, model, col_ptr, rows, features,
+                                           dtype=torch.float32)
             gap.add(control.cpu().numpy(), exact)
         else:
             gap.add(out.full_outputs, exact)
@@ -165,9 +166,9 @@ def compare(config, mix, data, params, out, seed, *, device, tf32=False):
                     break
                 frontier = replay.next(seeds)
                 if i in pick:
-                    logits = _forward(config, params, features, frontier, batch, tf32)
+                    logits = _forward(config, model, params, features, frontier, batch, tf32)
                     if tf32:
-                        exact = _forward(config, params, features, frontier, batch, False)
+                        exact = _forward(config, model, params, features, frontier, batch, False)
                         gap.add(logits.cpu().numpy(), exact)
                     else:
                         gap.add(outputs[i], logits)

@@ -17,9 +17,8 @@ import time
 import numpy as np
 import torch
 
-from bench import devtrace
+from bench import devtrace, models
 from bench.data import GraphData, sub_seed
-from bench.flops import layer_dims
 from bench.generator import offline_batches, poisson_requests
 from repro_torch.core.config import EngineConfig, ServeConfig
 from repro_torch.graph.csc import CSCGraph
@@ -57,21 +56,11 @@ class Outcome:
 
 
 def make_params(config: dict, seed: int, device) -> list[dict]:
-    """The model's weights from the seed, on ``device``: normal, scaled by
-    ``1/sqrt(fan-in)``, zero biases (the engine's own initialisation)."""
-    dims = layer_dims(config)
+    """The model's weights from the seed, on ``device``: drawn by the
+    configuration's model file (``bench/models/<model>.py``) from a generator
+    seeded for the run."""
     gen = torch.Generator(device=device).manual_seed(sub_seed(seed, 2))
-    params = []
-    for i in range(len(dims) - 1):
-        scale = 1.0 / math.sqrt(dims[i])
-        names = ("w_self", "w_nbr") if config["model"] == "graphsage" else ("w_self",)
-        layer = {
-            k: torch.randn((dims[i], dims[i + 1]), generator=gen, device=device) * scale
-            for k in names
-        }
-        layer["b"] = torch.zeros(dims[i + 1], device=device)
-        params.append(layer)
-    return params
+    return models.load(config["model"]).init(config, gen, device)
 
 
 def _dataset(config: dict, data: GraphData) -> SyntheticGraphDataset:

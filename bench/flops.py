@@ -1,10 +1,9 @@
 """The model's floating-point operations, counted from shapes alone.
 
-Each multiply and each add is one operation.  A layer aggregates its
-neighbours' rows (GraphSAGE sums them; GCN adds the node's own row to the
-sum and divides by the count) and applies its linear maps: GraphSAGE two
-products and two adds per output (the self and neighbour maps and the
-bias), GCN one product and one add.  ReLU is not counted.
+Each multiply and each add is one operation; the activation is not counted.
+One layer's count is the model's own (``layer_flops`` in
+``bench/models/<model>.py``); this module counts the layers of a sampled
+batch and of the full graph.
 
 Peaks, published for an H100 SXM at its 700 W limit: float32 outside the
 tensor cores 67 TFLOP/s (the port computes the GNN in float32 with TF32
@@ -13,6 +12,8 @@ off); TF32 495 TFLOP/s.
 
 from __future__ import annotations
 
+from bench import models
+
 __all__ = ["FP32_PEAK", "TF32_PEAK", "full_graph_flops", "layer_dims", "sampled_flops"]
 
 FP32_PEAK = 67e12
@@ -20,35 +21,31 @@ TF32_PEAK = 495e12
 
 
 def layer_dims(config: dict) -> list[int]:
-    """Widths from input to logits: features, hidden ones, classes."""
-    ds = config["dataset"]
-    return [ds["feat_dim"]] + [config["hidden"]] * (config["layers"] - 1) + [ds["num_classes"]]
+    """Widths from input to logits, as the configuration's model gives them."""
+    return models.load(config["model"]).dims(config)
 
 
-def _layer_flops(model: str, rows: int, terms: int, d_in: int, d_out: int) -> int:
-    """One layer over ``rows`` destination rows aggregating ``terms``
-    neighbour rows in all."""
-    if model == "graphsage":
-        return (terms - rows) * d_in + 2 * (2 * rows * d_in * d_out) + 2 * rows * d_out
-    return terms * d_in + rows * d_in + 2 * rows * d_in * d_out + rows * d_out
-
-
-def sampled_flops(model: str, batch: int, fanouts, dims) -> int:
-    """One sampled batch of ``batch`` seeds (``fanouts`` outermost first)."""
+def sampled_flops(model: str, batch: int, fanouts, dims, config: dict | None = None) -> int:
+    """One sampled batch of ``batch`` seeds (``fanouts`` outermost first)
+    through model ``model`` of widths ``dims``."""
+    layer_flops = models.load(model).layer_flops
     rev = tuple(reversed(fanouts))
     sizes = [batch]
     for f in rev:
         sizes.append(sizes[-1] * (1 + f))
     total = 0
     for li, l in enumerate(range(len(rev) - 1, -1, -1)):
-        total += _layer_flops(model, sizes[l], sizes[l] * rev[l], dims[li], dims[li + 1])
+        total += layer_flops(sizes[l], sizes[l] * rev[l], dims[li], dims[li + 1],
+                             config=config, layer=li)
     return total
 
 
-def full_graph_flops(model: str, num_nodes: int, num_edges: int, dims) -> int:
+def full_graph_flops(model: str, num_nodes: int, num_edges: int, dims,
+                     config: dict | None = None) -> int:
     """Every node over its exact neighbourhood, every layer (a graph whose
     nodes all have a neighbour, as the stand-in's do)."""
+    layer_flops = models.load(model).layer_flops
     return sum(
-        _layer_flops(model, num_nodes, num_edges, dims[i], dims[i + 1])
+        layer_flops(num_nodes, num_edges, dims[i], dims[i + 1], config=config, layer=i)
         for i in range(len(dims) - 1)
     )

@@ -1,9 +1,10 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
-its configuration in ``bench/configs/<config>.json``, its traffic in
-``bench/traffic/<mix>.json`` (read by ``bench/generator.py``; its ``kind``
-picks the entry in ``bench/drive.py``), and each metric's reader in
+its configuration in ``bench/configs/<config>.json``, the configuration's
+model in ``bench/models/<model>.py`` (see ``bench/models/__init__.py``), its
+traffic in ``bench/traffic/<mix>.json`` (read by ``bench/generator.py``; its
+``kind`` picks the entry in ``bench/drive.py``), and each metric's reader in
 ``bench/metrics/<metric>.py``, whose ``read(ctx)`` returns a number or
 ``None`` when it finds nothing to read.
 """
@@ -20,9 +21,9 @@ import time
 
 import torch
 
-from bench import check, drive
+from bench import check, drive, models
 from bench.data import make_graph
-from bench.flops import full_graph_flops, layer_dims, sampled_flops
+from bench.flops import full_graph_flops, sampled_flops
 from bench.generator import load_mix
 
 __all__ = ["FORBIDDEN", "cell_spec", "run_cell"]
@@ -36,13 +37,15 @@ def cell_spec(cell: str) -> tuple[dict, dict, dict, dict]:
     """``(benchmark, workload entry, configuration, mix)`` of a cell.  A
     ``<config>.<mix>`` that is no cell of ``BENCHMARK.json`` (the served
     mix, which the tests and ``bench/sweep.py`` drive) is read from its
-    files alone."""
+    files alone.  Raises ``FileNotFoundError`` naming the model's file where
+    the configuration's model has none."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     entry = next((w for w in bench["workloads"] if w["name"] == cell), None)
     if entry is None:
         config_name, traffic = cell.split(".", 1)
         entry = {"name": cell, "config": config_name, "traffic": traffic, "chips": 1}
     config = json.loads((HERE / "configs" / f"{entry['config']}.json").read_text())
+    models.find(config["model"])
     return bench, entry, config, load_mix(entry["traffic"])
 
 
@@ -101,6 +104,7 @@ def run_cell(
     bench, _, config, mix = cell_spec(cell)
     config = {**config, **overrides.get("config", {})}
     mix = {**mix, **overrides.get("mix", {})}
+    model = models.load(config["model"])
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -138,6 +142,7 @@ def run_cell(
     log(f"check {time.perf_counter() - t_check:.3f} s")
     correct = all(value <= limit for value, limit in numbers.values())
 
+    dims = model.dims(config)
     if mix["kind"] == "layerwise":
         lc = out.layer_counts
         gather_groups = [
@@ -145,16 +150,16 @@ def run_cell(
             (lc["embed_hits"], lc["embed_lookups"] - lc["embed_hits"], lc["embed_row_bytes"]),
         ]
         flops = out.passes * full_graph_flops(
-            config["model"], data.num_nodes, data.num_edges, layer_dims(config)
+            config["model"], data.num_nodes, data.num_edges, dims, config
         )
     else:
         gather_groups = counts.get("gather_groups")
-        per = sampled_flops(config["model"], mix["batch_size"], config["fanouts"], layer_dims(config))
+        per = sampled_flops(config["model"], mix["batch_size"], config["fanouts"], dims, config)
         flops = per * (out.nodes // mix["batch_size"])
     ctx = dict(
         cell=cell, config=config, mix=mix, outcome=out, setup_s=setup_s,
         trace=holder.get("trace"), prep_s=out.prep_s, allocation=out.allocation,
-        hits=out.hits, gather_groups=gather_groups, flops=flops,
+        hits=out.hits, gather_groups=gather_groups, flops=flops, model=model,
     )
     metrics = {}
     for m in _cell_metrics(bench, cell, trace):

@@ -16,7 +16,8 @@ again what the program's set-up derives from them:
     hits (exact counts);
   * the logits, in float64 (or, for the precision control, in float32
     with TF32 on), of a sampled forward or of the exact full-graph
-    forward of the layer-wise mode.
+    forward of the layer-wise mode, each layer through the configuration's
+    model file (``bench/models/<model>.py``, handed in by the caller).
 
 The random draws: a slot for seed ``v`` is ``min(floor(u * deg(v)),
 deg(v) - 1)`` with ``u`` from ``torch.rand(..., dtype=float64)`` on a
@@ -247,56 +248,47 @@ class Replay:
         return block.frontier
 
 
-def _layer(p, model, x_self, agg, fan_or_deg, dtype):
-    w_self = p["w_self"].to(dtype)
-    if model == "graphsage":
-        return x_self @ w_self + agg @ p["w_nbr"].to(dtype) + p["b"].to(dtype)
-    return ((x_self + agg) / (fan_or_deg + 1.0)) @ w_self + p["b"].to(dtype)
-
-
 def block_forward(params, model, features, frontier, batch, fanouts, *, dtype=torch.float64,
                   chunk_rows=65536) -> torch.Tensor:
-    """Logits of one sampled batch.  The deepest layer reads its rows from
-    ``features`` in chunks of destination rows, so the input frontier's
-    feature matrix is never built whole."""
+    """Logits of one sampled batch through ``model`` (its file under
+    ``bench/models``: the layer over a block, and the activation between
+    layers).  The deepest layer reads its rows from ``features`` in chunks
+    of destination rows, so the input frontier's feature matrix is never
+    built whole."""
     sizes = frontier_sizes(batch, fanouts)
     rev = tuple(reversed(fanouts))
     n_layers = len(fanouts)
     h = None
     for li, l in enumerate(range(n_layers - 1, -1, -1)):
         s, f = sizes[l], rev[l]
+        last = li == n_layers - 1
         if h is None:
             outs = []
             for c0 in range(0, s, chunk_rows):
                 c1 = min(c0 + chunk_rows, s)
                 x_self = features[frontier[c0:c1]].to(dtype)
                 nbr = features[frontier[s + c0 * f : s + c1 * f]].to(dtype)
-                agg = nbr.reshape(c1 - c0, f, -1).sum(1)
-                outs.append(_layer(params[li], model, x_self, agg, f, dtype))
+                outs.append(model.block_layer(params[li], x_self, nbr.reshape(c1 - c0, f, -1), f,
+                                              dtype, last=last))
             out = torch.cat(outs)
         else:
-            agg = h[s:].reshape(s, f, -1).sum(1)
-            out = _layer(params[li], model, h[:s], agg, f, dtype)
-        h = torch.relu(out) if li < n_layers - 1 else out
+            out = model.block_layer(params[li], h[:s], h[s:].reshape(s, f, -1), f, dtype, last=last)
+        h = out if last else model.activation(out)
     return h
 
 
 def full_forward(params, model, col_ptr, rows, features, *, dtype=torch.float64,
                  edge_block=1 << 23) -> torch.Tensor:
     """Logits of every node over its exact in-neighbourhood (the layer-wise
-    mode's semantics): GraphSAGE sums the neighbours; GCN averages over the
-    node and its neighbours."""
+    mode's semantics) through ``model``'s layer over the edge list."""
     n = col_ptr.shape[0] - 1
     deg = (col_ptr[1:] - col_ptr[:-1]).to(dtype)[:, None]
     dst = torch.repeat_interleave(torch.arange(n, device=rows.device), col_ptr[1:] - col_ptr[:-1])
     h = features
     for li, p in enumerate(params):
+        last = li == len(params) - 1
         x = h.to(dtype)
-        agg = torch.zeros_like(x)
-        for e0 in range(0, rows.shape[0], edge_block):
-            e1 = min(e0 + edge_block, rows.shape[0])
-            agg.index_add_(0, dst[e0:e1], x[rows[e0:e1].to(torch.int64)])
-        out = _layer(p, model, x, agg, deg, dtype)
-        h = torch.relu(out) if li < len(params) - 1 else out
-        del x, agg
+        out = model.full_layer(p, x, dst, rows, deg, dtype, edge_block, last=last)
+        h = out if last else model.activation(out)
+        del x
     return h

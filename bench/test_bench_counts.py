@@ -12,6 +12,10 @@ from bench.harness import cell_spec
 from bench.roofline import HBM_BYTES_PER_S, PCIE_BYTES_PER_S, gather_bytes, least_seconds
 from repro_torch.models.gnn.models import forward
 
+# The two configurations' models, by the names their files have.
+SAGE = cell_spec("sage-products.offline4096")[2]["model"]
+GCN = cell_spec("gcn-reddit.offline4096")[2]["model"]
+
 
 def test_gather_bytes_by_hand():
     # 3 hit rows and 2 miss rows of 400 bytes: 3 rows read and 5 written
@@ -26,15 +30,15 @@ def test_gather_bytes_by_hand():
 def test_flops_by_hand():
     # One GraphSAGE layer, 2 seeds, fan-out 2, 3 -> 4: 2 * 1 * 3 neighbour
     # adds, two products of 2 * 2 * 3 * 4, two adds per output.
-    assert sampled_flops("graphsage", 2, (2,), [3, 4]) == 6 + 96 + 16
+    assert sampled_flops(SAGE, 2, (2,), [3, 4]) == 6 + 96 + 16
     # GCN: 2 * 2 * 3 adds (self and two neighbours), 2 * 3 divides, one
     # product, the bias.
-    assert sampled_flops("gcn", 2, (2,), [3, 4]) == 12 + 6 + 48 + 8
-    assert full_graph_flops("gcn", 5, 9, [3, 4]) == 27 + 15 + 120 + 20
+    assert sampled_flops(GCN, 2, (2,), [3, 4]) == 12 + 6 + 48 + 8
+    assert full_graph_flops(GCN, 5, 9, [3, 4]) == 27 + 15 + 120 + 20
     assert FP32_PEAK == 67e12
 
 
-@pytest.mark.parametrize("model", ["graphsage", "gcn"])
+@pytest.mark.parametrize("model", [SAGE, GCN])
 def test_products_match_a_flop_counter(model):
     """The linear maps' share of the count equals what torch's counter
     sees in the port's forward over the same block."""
@@ -49,14 +53,25 @@ def test_products_match_a_flop_counter(model):
         forward(params, feats, model=model, fanouts=fanouts)
     sizes = [batch, batch * 3]
     per_map = 2 * (sizes[1] * dims[0] * dims[1] + sizes[0] * dims[1] * dims[2])
-    assert counter.get_total_flops() == per_map * (2 if model == "graphsage" else 1)
+    assert counter.get_total_flops() == per_map * (2 if model == SAGE else 1)
     assert sampled_flops(model, batch, fanouts, dims) > counter.get_total_flops()
 
 
-def test_counts_do_not_depend_on_the_gather_route():
+class FourBatches(drive.WindowBatches):
+    """The window's first four batches, whatever the clock says: a loaded host
+    must not give one route fewer batches to compare than another."""
+
+    def __iter__(self):
+        while self.count < 4:
+            yield self.batches[self.count % len(self.batches)]
+            self.count += 1
+
+
+def test_counts_do_not_depend_on_the_gather_route(monkeypatch):
     """The roofline's rows come from the reference's replay of the
     window's batches, so every route of the program is held to the same
     count; the program's own hit counts agree on each route."""
+    monkeypatch.setattr(drive, "WindowBatches", FourBatches)
     cell = "sage-products.offline4096"
     _, _, config, mix = cell_spec(cell)
     config = {**config, "cache_mb": 0.1, "n_presample": 2}
@@ -67,7 +82,7 @@ def test_counts_do_not_depend_on_the_gather_route():
     for use_kernel, dedup in ((True, True), (False, False), (True, False)):
         cfg = {**config, "use_kernel": use_kernel, "dedup": dedup}
         out = drive.run_offline(cfg, mix, data, params, 11, 0.2, torch.device("cpu"), False, {}, {})
-        out.batches, out.outputs = out.batches[:4], out.outputs[:4]
+        assert len(out.batches) == len(out.outputs) == 4
         out.allocation = dict(seen[0][1]) if seen else out.allocation
         numbers, counts = check.compare(cfg, mix, data, params, out, 11, device=torch.device("cpu"))
         seen.append((counts["gather_groups"], out.allocation))
