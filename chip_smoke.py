@@ -9,9 +9,9 @@ Imports nothing of JAX and nothing of the JAX package.  Phases, none of
 whose errors is caught:
 
 1. device: the card's name and power limit;
-2. build: compile the three sources of ``src/repro_torch/csrc/``
-   (``cached_gather.cu``, ``seg_agg.cu``, ``flash_attention.cu``) with
-   ``nvcc``, one process each, all started together, print the build
+2. build: compile the four sources of ``src/repro_torch/csrc/``
+   (``cached_gather.cu``, ``seg_agg.cu``, ``flash_attention.cu``,
+   ``gat_attend.cu``) with ``nvcc``, one process each, all started together, print the build
    time and each kernel's registers, static shared memory and spills
    from ``-Xptxas -v``, and kernel #3's ring (its dynamic shared memory
    per CTA and CTAs per SM at the F = 100 and F = 602 row widths);
@@ -227,6 +227,24 @@ whose errors is caught:
    ``launch/distributed.py`` (an ``all_reduce`` leaves its tensor as it
    was; the production topology check names one device).
 
+20. GAT (run after phase 8), at ``gat-products.offline4096``'s shapes
+   (``bench/configs/gat-products.json``, batch 4096 at fan-outs 15,10,5):
+   ``gat_attend`` at its three layers — layer 0 through the inverse map,
+   270,336 destinations x 16 positions of F = 100 from a table of
+   ogbn-products' 2,449,029 rows by uniform ids (about 2.03 M of them
+   distinct), 4 heads; layers 1 and 2 in place, 24,576 x 11 and 4,096 x
+   6 positions of F = 1,024, 4 and 6 heads — held to ``ref.py`` in
+   float64 on the same inputs (the widest gap within ``GAT_TOL`` of the
+   largest output), layer 0's dense form the same bits as its indexed
+   form; each timed beside ``ref.py``, the paper's order in torch ops
+   (project every position's row, score, softmax, sum: the library time)
+   and the bound of ``bench/models/gat.py``'s ``attend_bytes`` at HBM3's
+   rate.  Then GAT through ``GNNInferenceEngine`` on the cell's route
+   (kernel, dedup, depth 2) and without dedup, ``prepare("dci", 256 MB)``
+   at batch 4096: ``gat_attend.launches`` set to 0 just before each run
+   and read just after must be 3 a batch (warm-up included), each batch
+   counted in ``fused_batches``, the logits of both routes identical.
+
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
 Bounds use the published peaks of the card ``nvidia-smi`` names
@@ -275,6 +293,15 @@ SEG_SHAPE = (180_224, 5, 100)  # first GraphSAGE layer: 1024*16*11 dst nodes, fa
 # fanout 15): (label, F, table rows, mode) for ogbn-products and Reddit.
 INDEXED_DST, INDEXED_FANOUT = 270_336, 15
 INDEXED_CASES = (("products", 100, 2_449_029, "sage"), ("reddit", 602, 232_965, "gcn"))
+# Phase 20, GAT at gat-products.offline4096 (batch 4096 at FANOUTS, the
+# widths of bench/configs/gat-products.json): gat_attend against ref.py in
+# float64 within GAT_TOL of the largest output (float32 scores of up to
+# 1,024 terms and the online softmax's rescaling; the card tests hold it
+# to the same limit), and the engine's batches on the cell's route.
+GAT_CONFIG = ROOT / "bench" / "configs" / "gat-products.json"
+GAT_BATCH = 4096
+GAT_TABLE_ROWS = 2_449_029  # layer 0 reads ogbn-products' rows through the inverse map
+GAT_TOL = 1e-5
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
 # Phase 15, LM serving (src/repro/configs/gemma_2b.py at full size, bf16):
@@ -364,6 +391,7 @@ REPLACES = {
     "seg_agg": "src/repro/kernels/seg_agg/kernel.py:32",
     "seg_agg_indexed": "none: fuses src/repro/models/gnn/models.py:79 with seg_agg",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
+    "gat_attend": "none: JAX has no GAT",
 }
 SOURCES = {
     "cached_gather": "src/repro_torch/csrc/cached_gather.cu",
@@ -372,6 +400,7 @@ SOURCES = {
     "seg_agg": "src/repro_torch/csrc/seg_agg.cu",
     "seg_agg_indexed": "src/repro_torch/csrc/seg_agg.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "gat_attend": "src/repro_torch/csrc/gat_attend.cu",
 }
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s and
 # device-memory bytes/s, by a substring of the name nvidia-smi reports.
@@ -451,16 +480,17 @@ def build_phase() -> dict:
     from repro_torch.kernels._build import build_library
     from repro_torch.kernels.cached_gather import kernel as cg
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.gat_attend import kernel as ga
     from repro_torch.kernels.seg_agg import kernel as sa
     from repro_torch.runtime.gnn_engine import HBM3_BW, PCIE5_BW
 
     phase("2. build")
     t0 = time.perf_counter()
-    names = ("cached_gather", "seg_agg", "flash_attention")
+    names = ("cached_gather", "seg_agg", "flash_attention", "gat_attend")
     # One nvcc per source, all started together; each call raises on failure.
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build_library, names)))
-    for mod in (cg, sa, fa):
+    for mod in (cg, sa, fa, ga):
         mod.load_library()
     build_s = time.perf_counter() - t0
     log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v, per kernel:")
@@ -1290,6 +1320,130 @@ def main_path_phase(eng) -> dict:
     return {"reports": reports, "launches": launches, "route_launches": route_launches,
             "launches_per_batch": per_batch, "max_memory_allocated": peak,
             "seg_agg_indexed_launches": indexed_total}
+
+
+def gat_phase(ds, hbm: float) -> dict:
+    """Phase 20: gat_attend at the GAT cell's three layers against ref.py
+    and timed, then GAT through the engine with its launches counted."""
+    import numpy as np
+    import torch
+
+    from bench import models as bench_models
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.kernels.gat_attend import kernel as ga
+    from repro_torch.kernels.gat_attend.ref import gat_attend_ref
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+
+    config = json.loads(GAT_CONFIG.read_text())
+    bench_gat = bench_models.load("gat")
+    widths = bench_gat.dims(config)
+    phase(f"20. GAT: gat_attend at gat-products.offline4096's layers, then the engine "
+          f"(batch {GAT_BATCH}, fanouts {FANOUTS})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    layers = []
+    for layer, fo in enumerate(FANOUTS):  # layer 0 reads the deepest frontier
+        heads, f = config["heads"][layer], widths[layer]
+        width = widths[-1] if layer == len(FANOUTS) - 1 else config["head_dim"]
+        n = GAT_BATCH * int(np.prod([1 + k for k in FANOUTS[layer + 1:]]))
+        positions = n * (1 + fo)
+        indexed = layer == 0
+        if indexed:
+            x = torch.randn((GAT_TABLE_ROWS, f), generator=gen, device="cuda")
+            idx = torch.randint(0, GAT_TABLE_ROWS, (positions,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            distinct = int(torch.unique(idx).numel())
+        else:
+            x, idx, distinct = torch.randn((positions, f), generator=gen, device="cuda"), None, positions
+        w = torch.randn((f, heads * width), generator=gen, device="cuda") / f ** 0.5
+        a_src, a_dst = torch.randn((2, heads, width), generator=gen, device="cuda") / width ** 0.5
+        u = torch.einsum("fhd,shd->shf", w.view(f, heads, width), torch.stack((a_src, a_dst)))
+        kw = dict(num_dst=n, fanout=fo, negative_slope=config["negative_slope"])
+        label = f"layer {layer}"
+
+        got = ga.gat_attend(x, idx, u, **kw)
+        exact = gat_attend_ref(x.double(), idx, u.double(), **kw)
+        err = float((got.double() - exact).abs().max())
+        gap = err / float(exact.abs().max())
+        del exact
+        if not gap <= GAT_TOL:
+            raise AssertionError(f"gat_attend ({label}): {gap:.3g} of the largest output from "
+                                 f"ref.py in float64, over {GAT_TOL}")
+        idx64 = None if idx is None else idx.long()
+
+        def paper_order():
+            """Project every position's row, score, softmax, sum (Eqs. 2-4)."""
+            z = ((x if idx64 is None else x[idx64]) @ w).view(-1, heads, width)
+            z_self, nbr = z[:n], z[n:].view(n, fo, heads, width)
+            e = torch.cat([(z_self * a_src).sum(-1)[:, None], (nbr * a_src).sum(-1)], 1)
+            e = torch.nn.functional.leaky_relu(e + (z_self * a_dst).sum(-1)[:, None],
+                                               config["negative_slope"])
+            alpha = torch.softmax(e, 1)
+            return alpha[:, 0, :, None] * z_self + (alpha[:, 1:, :, None] * nbr).sum(1)
+
+        mine = torch.einsum("nhf,fhd->nhd", got, w.view(f, heads, width))
+        lib = paper_order()
+        library_gap = float((lib - mine).abs().max() / lib.abs().max())
+        del lib, mine
+        nbytes = bench_gat.attend_bytes(f, widths[layer + 1], config=config, layer=layer, dst=n,
+                                        positions=positions, distinct_rows=distinct,
+                                        indexed=indexed)
+        row = dict(label=label, shape=[n, 1 + fo, f], heads=heads, indexed=indexed,
+                   distinct_rows=distinct, max_abs_err=err, max_rel_gap=gap,
+                   library_rel_gap=library_gap,
+                   ms=cuda_ms(lambda: ga.gat_attend(x, idx, u, **kw), reps=10),
+                   plain_ms=cuda_ms(lambda: gat_attend_ref(x, idx, u, **kw), reps=3),
+                   library_ms=cuda_ms(paper_order, reps=3),
+                   bytes=nbytes, bound_ms=1e3 * nbytes / hbm)
+        form = "through the index" if indexed else "in place"
+        log(f"  {label} [{n} x {1 + fo}, F {f}, {heads} heads] {form}: kernel {row['ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({distinct} distinct rows, {nbytes} B)  ref.py "
+            f"{row['plain_ms']:.4f} ms  paper order {row['library_ms']:.4f} ms; gap to ref.py in "
+            f"float64 {gap:.3g} of the largest output, paper order to the kernel's heads "
+            f"{library_gap:.3g}")
+        if indexed:  # the dense form of the same positions: the same bits
+            dense = x[idx64]
+            del x, idx, idx64
+            if not torch.equal(ga.gat_attend(dense, None, u, **kw), got):
+                raise AssertionError(f"gat_attend ({label}): dense form differs from indexed form")
+            row["dense_ms"] = cuda_ms(lambda: ga.gat_attend(dense, None, u, **kw), reps=10)
+            log(f"  {label} dense form (no index): kernel {row['dense_ms']:.4f} ms, the same bits")
+            del dense
+        else:
+            del x
+        del got, w, u
+        torch.cuda.empty_cache()
+        layers.append(row)
+
+    eng = GNNInferenceEngine(ds, model="gat", fanouts=FANOUTS, batch_size=GAT_BATCH, seed=SEED,
+                             device="cuda")
+    t0 = time.perf_counter()
+    eng.prepare(config["policy"], config=EngineConfig(), total_cache_bytes=CACHE_BYTES)
+    prepare_s = time.perf_counter() - t0
+    runs, outputs, launches = {}, {}, 0
+    for label, dedup in (("kernel_dedup_d2", True), ("kernel_d2", False)):
+        cfg = EngineConfig(use_kernel=True, dedup=dedup, pipeline_depth=2)
+        # Counted from 0 just before the run; MAIN_BATCHES batches and a warm-up.
+        ga.gat_attend.launches = 0
+        rep = eng.run(config=cfg, max_batches=MAIN_BATCHES, collect_outputs=True)
+        count = ga.gat_attend.launches
+        if count != len(FANOUTS) * (MAIN_BATCHES + 1) or rep.fused_batches != MAIN_BATCHES:
+            raise AssertionError(f"GAT {label}: gat_attend launched {count} times, fused_batches "
+                                 f"{rep.fused_batches}, for {MAIN_BATCHES} batches and a warm-up")
+        out = np.stack(eng.last_outputs)
+        if out.shape != (MAIN_BATCHES, GAT_BATCH, widths[-1]) or not np.isfinite(out).all():
+            raise AssertionError(f"GAT {label}: logits of shape {out.shape}, "
+                                 f"finite={np.isfinite(out).all()}")
+        launches += count
+        outputs[label] = out
+        runs[label] = dict(rep.summary(), gat_attend_launches=count)
+        log(f"  engine {label}: {MAIN_BATCHES} batches, gat_attend {count} launches "
+            f"({count / (MAIN_BATCHES + 1):.0f} a batch), fused_batches {rep.fused_batches}, "
+            f"compute {rep.compute_seconds:.4f} s, total {rep.total_seconds:.4f} s")
+    if not np.array_equal(outputs["kernel_dedup_d2"], outputs["kernel_d2"]):
+        raise AssertionError("GAT: logits with dedup differ from those without")
+    log(f"  logits identical with and without dedup; prepare {prepare_s:.1f} s")
+    del eng
+    return {"layers": layers, "runs": runs, "launches": launches, "prepare_s": prepare_s}
 
 
 def counted_run(run, counters) -> tuple[object, dict]:
@@ -3703,7 +3857,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if not all((SRC / "repro_torch" / "csrc" / f"{n}.cu").is_file()
-               for n in ("cached_gather", "seg_agg", "flash_attention")):
+               for n in ("cached_gather", "seg_agg", "flash_attention", "gat_attend")):
         print(f"chip_smoke: no repro_torch sources under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
@@ -3724,6 +3878,8 @@ def main() -> int:
     ops_launches = ops_path_phase()
     torch.cuda.empty_cache()
     main_path = main_path_phase(eng)
+    gat = gat_phase(ds, peaks[1])
+    torch.cuda.empty_cache()
     cli = cli_phase()
     baselines = baselines_phase(ds, eng)
     layerwise = layerwise_phase(ds, eng)
@@ -3775,6 +3931,12 @@ def main() -> int:
            "launches": main_path["seg_agg_indexed_launches"], "max_abs_err": r["max_abs_err"],
            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
            "bound_by": "bytes", "library_ms": r["library_ms"]} for r in seg_row["indexed"]),
+        # One row per layer of the GAT cell; launches: phase 20's engine runs.
+        *({"name": "gat_attend", "route": "cuda", "source": SOURCES["gat_attend"],
+           "replaces": REPLACES["gat_attend"], "case": r["label"], "launches": gat["launches"],
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"]}
+          for r in gat["layers"]),
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
         # launches: the ops path's, phases 15-17's LM serving runs, phase
@@ -3793,7 +3955,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
-        "ops_launches": ops_launches, "main_path": main_path, "baselines": baselines,
+        "ops_launches": ops_launches, "main_path": main_path, "gat": gat, "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
         "lm": lm, "ssm": ssm, "encdec": encdec, "training": training, "dryrun": dry,
         "cli": cli, "path_launches": path_launches,

@@ -14,6 +14,9 @@ live in ``src/repro_torch/csrc/`` and are built at first use
                     frontier's distinct rows through the inverse map
   flash_attention/  blocked online-softmax attention with causal,
                     sliding-window and logit-softcap variants
+  gat_attend/       GAT's per-head softmax-weighted sums of a sampled layer's
+                    input rows, scored from the heads' folded score vectors
+                    (no reference counterpart, so no ``ops.py``)
 """
 
 from repro_torch.kernels.cached_gather.ops import cached_feature_gather

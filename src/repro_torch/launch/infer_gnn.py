@@ -41,6 +41,7 @@ from repro_torch.core.faults import FaultInjector, FaultPlan
 from repro_torch.core.policies import ADMISSION_POLICIES, POLICIES
 from repro_torch.core.trace import MetricsRegistry, Tracer
 from repro_torch.graph.datasets import load_dataset
+from repro_torch.models.gnn.models import MODELS
 from repro_torch.runtime.gnn_engine import GNNInferenceEngine
 from repro_torch.runtime.gnn_serve import MultiStreamServer, make_stream_batches
 from repro_torch.runtime.request_queue import (
@@ -78,7 +79,7 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="ogbn-products")
     ap.add_argument("--policy", default="dci", choices=sorted(POLICIES))
-    ap.add_argument("--model", default="graphsage", choices=("graphsage", "gcn"))
+    ap.add_argument("--model", default="graphsage", choices=MODELS)
     ap.add_argument("--fanouts", default="15,10,5")
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--cache-mb", type=float, default=2.0)

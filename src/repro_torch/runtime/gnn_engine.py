@@ -67,7 +67,6 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.sampling import pow2_bucket, sample_blocks
 from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
-from repro_torch.kernels.seg_agg.kernel import seg_agg_indexed
 from repro_torch.models.gnn.models import GNN, init_params
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
 from repro_torch.utils.timing import StageClock, block_until_ready
@@ -154,8 +153,9 @@ class InferenceReport:
     dedup: bool = False
     unique_rows: int = 0
     gathered_rows: int = 0
-    # Batches whose model layer 0 read its rows through the indexed
-    # aggregation kernel (every batch on a card, none on the CPU).
+    # Batches whose model layer 0 ran in one kernel, reading its rows
+    # through the inverse map where there is one (``GNN.fused_forwards``):
+    # every batch on a card, none on the CPU.
     fused_batches: int = 0
     # Online-refresh accounting (empty/None with refresh off, leaving the
     # report as it was):
@@ -310,7 +310,7 @@ class StreamRuntime:
         self.prefetched_rows = 0
         self.unique_rows = 0  # sum of per-batch distinct input nodes (dedup)
         self.gathered_rows = 0  # rows the feature stage actually gathered
-        self.fused_batches = 0  # batches whose layer 0 launched seg_agg_indexed
+        self.fused_batches = 0  # batches the model counts in fused_forwards
         # Per-cache-epoch counters: epoch -> [adj_hits, adj_lookups,
         # feat_hits, feat_lookups, batches].  With refresh off everything
         # lands in epoch 0.
@@ -580,10 +580,10 @@ class StreamRuntime:
     def compute(self, ctx):
         feats = ctx.outputs["feature"][0]
         inverse = self._dedup_view(ctx)[0].inverse if self.dedup else None
-        launches = seg_agg_indexed.launches
+        fused = self.model.fused_forwards
         with torch.inference_mode():
-            out = self.model(feats, inverse_index=inverse)
-        self.fused_batches += seg_agg_indexed.launches - launches
+            out = self.model(feats, inverse_index=inverse, tracer=self.tracer)
+        self.fused_batches += self.model.fused_forwards - fused
         return out
 
     def _read(self, value) -> int:

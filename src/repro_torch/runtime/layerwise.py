@@ -67,7 +67,7 @@ from repro_torch.graph.features import (
 )
 from repro_torch.graph.sampling import pow2_bucket
 from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
-from repro_torch.models.gnn.models import forward_layer
+from repro_torch.models.gnn.models import forward_layer, out_width
 from repro_torch.runtime.gnn_engine import modeled_transfer_seconds
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
 from repro_torch.utils.timing import StageClock, block_until_ready
@@ -313,8 +313,8 @@ def _probe_gather_seconds(
 def _intermediate_width(params) -> int:
     """Widest intermediate layer output — what sizes the embedding cache's
     need bound (the spill tables are [N, dims[k]] for k = 1..L-1)."""
-    widths = [int(p["w_self"].shape[1]) for p in params[:-1]]
-    return max(widths) if widths else int(params[-1]["w_self"].shape[1])
+    widths = [out_width(p) for p in params[:-1]]
+    return max(widths) if widths else out_width(params[-1])
 
 
 def run_layerwise(
@@ -426,7 +426,7 @@ def run_layerwise(
     for layer in range(num_layers):
         store = feat_store if layer == 0 else build_store
         relu = layer < num_layers - 1
-        out_dim = int(params[layer]["w_self"].shape[1])
+        out_dim = out_width(params[layer])
         # The spill table: pinned beside a card, so the next layer's
         # embedding store reads its misses over UVA without another copy.
         with tracer.span("spill-alloc", lane="layers"):

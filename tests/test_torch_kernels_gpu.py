@@ -30,6 +30,8 @@ from repro_torch.kernels.cached_gather.ref import cached_gather_ref
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_split_ref,
                                                       expand_kv)
+from repro_torch.kernels.gat_attend import kernel as ga
+from repro_torch.kernels.gat_attend.ref import gat_attend_ref
 from repro_torch.kernels.seg_agg import kernel as sa
 from repro_torch.kernels.seg_agg.ref import seg_agg_indexed_ref, seg_agg_ref
 from repro_torch.models.lm import attention as lm_attn
@@ -773,6 +775,136 @@ def test_engine_counts_every_batch_through_the_indexed_layer(cuda):
         assert rep.summary()["fused_batches"] == 4
         outs.append(np.stack(eng.last_outputs))
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# GAT's attention at the cell's shapes (gat-products.offline4096: layer 0
+# reads 270,336 x 16 positions of F = 100 through the inverse map over the
+# graph's 2,449,029 ids; layers 1 and 2 read 24,576 x 11 and 4,096 x 6
+# positions of F = 1,024 in place, 4 and 6 heads), and shapes that take
+# 1, 2, 4 and 8 warps a destination, a row narrower than a warp, one and
+# eight heads, one slot and a fanout past a chunk.  Held to ref.py in
+# float64 on the same float32 inputs: the widest gap within 1e-5 of the
+# largest output (float32 scores of up to 1,024 terms and the online
+# softmax's rescaling, against torch's softmax of float64 scores).  The
+# indexed and the dense form give the same bits.
+GAT_SHAPES = [(270_336, 15, 100, 4, 2_449_029), (24_576, 10, 1024, 4, 0), (4096, 5, 1024, 6, 0),
+              (1000, 15, 600, 4, 900), (999, 17, 256, 3, 700), (513, 1, 4, 1, 300),
+              (300, 6, 512, 8, 400), (77, 4, 132, 2, 50), (64, 9, 36, 5, 64)]
+
+
+def _u(gen, cuda, heads, f, scale):
+    return torch.randn((2, heads, f), generator=gen, device=cuda) * scale
+
+
+@pytest.mark.parametrize("num_dst,fanout,f,heads,rows", GAT_SHAPES)
+def test_gat_attend_matches_ref(cuda, num_dst, fanout, f, heads, rows):
+    gen = torch.Generator(device=cuda).manual_seed(num_dst + f)
+    positions = num_dst * (1 + fanout)
+    u = _u(gen, cuda, heads, f, 1.0 / f ** 0.5)
+    forms = []
+    if rows:
+        table = torch.full((rows + 3, f), float("nan"), device=cuda)  # the last 3 rows are pad
+        table[:rows] = torch.randn((rows, f), generator=gen, device=cuda)
+        idx = torch.randint(0, rows, (positions,), generator=gen, device=cuda, dtype=torch.int32)
+        forms.append((table, idx))
+        forms.append((table[idx.long()], None))
+    else:
+        forms.append((torch.randn((positions, f), generator=gen, device=cuda), None))
+    kw = dict(num_dst=num_dst, fanout=fanout, negative_slope=0.2)
+    first = None
+    for x, index in forms:
+        before = ga.gat_attend.launches
+        got = ga.gat_attend(x, index, u, **kw)
+        torch.cuda.synchronize()
+        assert ga.gat_attend.launches == before + 1
+        assert got.shape == (num_dst, heads, f) and not torch.isnan(got).any()
+        exact = gat_attend_ref(x.double(), index, u.double(), **kw)
+        gap = float((got.double() - exact).abs().max() / exact.abs().max())
+        assert gap <= 1e-5, gap
+        if first is None:
+            first = got
+        else:  # the dense form of the same positions: the same bits
+            assert torch.equal(first, got)
+        del x, exact
+
+
+def test_gat_attend_odd_base_empty_and_refusals(cuda):
+    table = torch.randn(41 * 64 + 1, device=cuda)[1:].view(41, 64)  # a base 4 bytes past 16
+    idx = torch.randint(0, 41, (7 * 4,), device=cuda, dtype=torch.int32)
+    u = torch.randn((2, 3, 64), device=cuda) / 8
+    kw = dict(num_dst=7, fanout=3, negative_slope=0.2)
+    got = ga.gat_attend(table, idx, u, **kw)  # the wrapper copies the table to an aligned base
+    torch.testing.assert_close(got, gat_attend_ref(table, idx, u, **kw), rtol=1e-5, atol=1e-6)
+    assert torch.equal(ga.gat_attend(table.clone(), idx, u, **kw), got)
+    dense = torch.empty(28 * 64 + 1, device=cuda)[1:].view(28, 64)
+    dense.copy_(table[idx.long()])
+    assert torch.equal(ga.gat_attend(dense, None, u, **kw), got)
+    empty = ga.gat_attend(table, idx[:0], u, num_dst=0, fanout=3, negative_slope=0.2)
+    assert empty.shape == (0, 3, 64)
+    with pytest.raises(ValueError, match="float32"):
+        ga.gat_attend(table.double(), idx, u, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        ga.gat_attend(table, idx.long(), u, **kw)
+    with pytest.raises(ValueError, match="idx on"):
+        ga.gat_attend(table, idx.cpu(), u, **kw)
+    with pytest.raises(ValueError, match="heads"):
+        ga.gat_attend(table, idx, torch.zeros((2, 9, 64), device=cuda), **kw)
+    for f in (602, 1028):  # a row the kernel does not read in 16-byte vectors, a row too wide
+        with pytest.raises(ValueError, match="multiple of 4 floats, at most 1024"):
+            ga.gat_attend(torch.zeros((28, f), device=cuda), None,
+                          torch.zeros((2, 1, f), device=cuda), **kw)
+
+
+def test_gat_forward_inverse_index_equals_the_dense_form_on_the_card(cuda):
+    """GAT at the cell's widths (4 heads of 256 twice, 6 heads averaged):
+    layer 0 through gat_attend with the inverse map and in the dense form
+    gives the same bits, three launches a forward, and the logits sit
+    within 2e-5 of the largest of the CPU's (the benchmark's
+    ``logit_gap`` limit: the card's products and sums run in other orders)."""
+    from repro_torch.models.gnn import models as gm
+
+    fanouts = (15, 10, 5)
+    gen = torch.Generator().manual_seed(7)
+    params = gm.init_params(gen, "gat", 100, 47, device=cuda)
+    positions = 64 * 16 * 11 * 6
+    uniq = torch.randn((positions // 3 + 11, 100), generator=gen)
+    uniq[-11:] = float("nan")  # pad rows, never read
+    inverse = torch.randint(0, positions // 3, (positions,), generator=gen, dtype=torch.int32)
+    before = ga.gat_attend.launches
+    got = gm.forward(params, uniq.to(cuda), model="gat", fanouts=fanouts,
+                     inverse_index=inverse.to(cuda))
+    dense = gm.forward(params, uniq[inverse.long()].to(cuda), model="gat", fanouts=fanouts)
+    torch.cuda.synchronize()
+    assert ga.gat_attend.launches == before + 6
+    assert got.shape == (64, 47) and torch.equal(got, dense)
+    cpu = gm.forward([{k: v.cpu() for k, v in p.items()} for p in params], uniq,
+                     model="gat", fanouts=fanouts, inverse_index=inverse)
+    assert float((got.cpu() - cpu).abs().max() / cpu.abs().max()) <= 2e-5
+
+
+def test_gat_engine_routes_agree_and_count_the_fused_batches_on_the_card(cuda):
+    """GAT through the engine on the card: every batch's layer 0 runs in
+    gat_attend (two launches a batch of a two-layer GAT, one fused batch),
+    and the dedup, table and prefetch routes give the same bits."""
+    from repro_torch.models.gnn import models as gm
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    params = gm.init_params(torch.Generator().manual_seed(3), "gat", 100, 47, n_layers=2)
+    eng = GNNInferenceEngine(ds, model="gat", fanouts=(4, 3), batch_size=128, params=params,
+                             device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    outs = []
+    for cfg in (EngineConfig(use_kernel=True, dedup=True, pipeline_depth=2),
+                EngineConfig(use_kernel=True, dedup=False, pipeline_depth=2),
+                EngineConfig(use_kernel=True, dedup=True, prefetch=True, pipeline_depth=1),
+                EngineConfig(use_kernel=False, pipeline_depth=1)):
+        before = ga.gat_attend.launches
+        rep = eng.run(config=cfg, max_batches=4, collect_outputs=True, warmup=False)
+        assert rep.fused_batches == rep.num_batches == 4
+        assert ga.gat_attend.launches - before == 8
+        outs.append(np.stack(eng.last_outputs))
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
 
 
 def _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=0):

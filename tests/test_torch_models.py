@@ -84,7 +84,7 @@ def test_init_params_shapes_and_seed():
     gcn = tmodels.init_params(gen(), "gcn", IN_DIM, CLASSES, n_layers=2)
     assert len(gcn) == 2 and "w_nbr" not in gcn[0]
     with pytest.raises(ValueError):
-        tmodels.init_params(gen(), "gat", IN_DIM, CLASSES)
+        tmodels.init_params(gen(), "gin", IN_DIM, CLASSES)
 
 
 def test_forward_keeps_tf32_off():
