@@ -8,7 +8,8 @@ result line, then, from the tracer the port recorded while the window's
 profiler recorded (``repro_torch.core.trace.profiler_session``):
 - per span name: count, total and self milliseconds, both per item (an
   item is one executor ``batch`` span);
-- the wait spans' count and milliseconds per item;
+- the wait spans' count and milliseconds per item, and their count by
+  kind (``wait``: ``device``, ``event``, ``read``);
 - ``covered``: the share of the window's host time inside the top-level
   host spans (``admit``, the stages and ``retire``; layer-wise also the
   pass's set-up spans), and ``outside``, the rest in seconds;
@@ -96,6 +97,7 @@ def main(argv=None) -> int:
         "waits": s["waits"],
         "waits_per_item": s["waits"] / items,
         "wait_ms_per_item": s["wait_ms"] / items,
+        "wait_kinds": s["wait_kinds"],
         "window_s": window_s,
         "covered": covered_us / 1e6 / window_s,
         "outside_s": window_s - covered_us / 1e6,

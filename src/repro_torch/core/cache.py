@@ -155,8 +155,9 @@ class DualCache:
         epoch's, and the swap is an attribute write on this object,
         visible to the next stage that reads it.  The old tensors are
         freed when their last batch retires; that batch's kernels were
-        queued on the stream the new tensors are made on, so the caching
-        allocator cannot hand their memory out early.
+        queued on the stream the new tensors are made on, or, sampled on a
+        stream of their own, waited for by it, so the caching allocator
+        cannot hand their memory out early.
 
         The swap is TRANSACTIONAL: exactly five attributes mutate
         (``dgraph``, ``store``, ``allocation``, ``_adj_cache``, ``epoch``),

@@ -50,10 +50,13 @@ on the kernels' clock.
 Wait spans
 ----------
 A span named ``drain:*`` or ``sync:*`` is a *wait span*: the host blocked
-on the card for one whole-device synchronize or one blocking
-device-to-host read.  :func:`summarize_trace` counts them and gives every
-span name its self time (its duration less what its children on the same
-lane cover).
+on the card once.  Its ``wait`` arg says how (:data:`WAIT_ARGS`):
+``device``, a whole-device synchronize; ``event``, the wait on one CUDA
+event (the work recorded before it on its stream, nothing queued after
+it); ``read``, a blocking device-to-host read.  :func:`summarize_trace`
+counts them, each kind apart (``device_syncs`` is the ``device`` count),
+and gives every span name its self time (its duration less what its
+children on the same lane cover).
 
 Tracing is observational only: it reads wall clocks and appends to a host
 list, never touching RNG streams, device buffers, or dispatch order — so
@@ -80,6 +83,7 @@ __all__ = [
     "NULL_TRACER",
     "NullTracer",
     "Tracer",
+    "WAIT_ARGS",
     "is_wait_span",
     "profiler_session",
     "resolve_tracer",
@@ -386,9 +390,14 @@ def resolve_tracer(tracer: Tracer | NullTracer | None) -> Tracer | NullTracer:
 
 def is_wait_span(name: str) -> bool:
     """Whether a span named ``name`` is a wait span (``drain:*``,
-    ``sync:*``): one whole-device synchronize or one blocking
-    device-to-host read."""
+    ``sync:*``): one whole-device synchronize, one event wait or one
+    blocking device-to-host read."""
     return name.startswith(("drain:", "sync:"))
+
+
+# A wait span's args by its kind (read-only: every span of a kind shares
+# one dict).
+WAIT_ARGS = {kind: {"wait": kind} for kind in ("device", "event", "read")}
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +500,9 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
     the share during which two or more were busy concurrently (exactly 0
     for a serial depth-1 run; > 0 whenever batches overlapped) — the
     ``top`` longest individual spans, and the wait spans' count
-    (``waits``) and time (``wait_ms``).  Slot-lane busy time is measured on
+    (``waits``), time (``wait_ms``), count by their ``wait`` arg
+    (``wait_kinds``) and count of whole-device synchronizes
+    (``device_syncs``).  Slot-lane busy time is measured on
     batch spans (each slot's enclosing dispatch→retire window), which are
     non-nested per lane, so nested stage spans don't double-count.  A
     span's self time is its duration less what its children on the same
@@ -511,6 +522,8 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
             "top_spans": [],
             "waits": 0,
             "wait_ms": 0.0,
+            "wait_kinds": {},
+            "device_syncs": 0,
             "n_events": len(events),
             "n_flows": len({e.get("id") for e in flows}) if flows else 0,
             "counters": counters,
@@ -522,6 +535,7 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
     by_lane: dict[str, list[tuple[float, float]]] = {}
     stages: dict[str, dict[str, float]] = {}
     waits, wait_us = 0, 0.0
+    kinds: dict[str, int] = {}
     for e, self_us in zip(spans, _self_us(spans)):
         lane = lane_of.get(e["tid"], f"tid {e['tid']}")
         by_lane.setdefault(lane, []).append((e["ts"], e["ts"] + e["dur"]))
@@ -535,6 +549,9 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
         if is_wait_span(e["name"]):
             waits += 1
             wait_us += e["dur"]
+            kind = e.get("args", {}).get("wait")
+            if kind is not None:
+                kinds[kind] = kinds.get(kind, 0) + 1
 
     lanes = {}
     for lane, ivals in sorted(by_lane.items()):
@@ -584,6 +601,8 @@ def summarize_trace(events: Iterable[Mapping], *, top: int = 5, slot_prefix: str
         ],
         "waits": waits,
         "wait_ms": wait_us / 1e3,
+        "wait_kinds": dict(sorted(kinds.items())),
+        "device_syncs": kinds.get("device", 0),
         "n_events": len(events),
         "n_flows": len({e.get("id") for e in flows}) if flows else 0,
         "counters": counters,

@@ -20,6 +20,20 @@ between sample and feature, copied on a side CUDA stream), ``use_kernel``
 gather/prefetch/model one row per DISTINCT node, expanding through the
 inverse map) — default from the prepared pipeline.  Outputs, hit counts
 and batch order are identical under every knob combination.
+
+Overlapped on a card (``pipeline_depth > 1``, a CUDA device), no stage
+waits on the whole device.  The sample stage copies the seeds and samples
+on a high-priority stream of the runtime's own, so its one read
+(``num_unique``, under dedup) waits for the sampling alone and not for the
+previous batch's gather and forward queued on the compute stream, which
+waits for the sample's event before the batch's feature stage.  Each stage
+records a CUDA event at the end of its dispatch, and retire waits on those
+events (:mod:`repro_torch.runtime.pipeline`).  The compute stage copies the
+batch's hit counts and logits into pinned host buffers before its event,
+so ``record`` reads host memory and makes no blocking read.  The draws,
+the ops and their order are the same, so the outputs and counts are the
+same bits.  Serial runs (depth 1) and the CPU keep one stream and the
+whole-device synchronize.
 ``EngineConfig(mode="layerwise")`` dispatches to the chunked full-graph
 executor (:mod:`repro_torch.runtime.layerwise`) instead.
 
@@ -62,7 +76,7 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.faults import InjectedFault
 from repro_torch.core.policies import PreparedPipeline, prepare
 from repro_torch.core.retry import RetryExhausted, StageTimeout, call_with_retry
-from repro_torch.core.trace import resolve_tracer
+from repro_torch.core.trace import WAIT_ARGS, resolve_tracer
 from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.sampling import pow2_bucket, sample_blocks
@@ -80,6 +94,7 @@ __all__ = [
     "InferenceReport",
     "StreamRuntime",
     "auto_pipeline_depth",
+    "host_seeds",
     "modeled_transfer_seconds",
     "stream_stages",
     "summarize_epoch_counters",
@@ -96,6 +111,16 @@ ADJ_ENTRY_BYTES = 4  # one int32 neighbor id per adjacency lookup
 # The errors of the fault subsystem: the only ones a retry, a degraded
 # fallback or a shedding server handles; any other error propagates.
 FAULT_ERRORS = (InjectedFault, RetryExhausted, StageTimeout)
+
+# ``ctx.outputs`` key of the CUDA event a stage records at the end of its
+# dispatch (overlapped on a card), by stage name.
+_DONE = "_done:"
+
+
+def host_seeds(seeds: np.ndarray) -> torch.Tensor:
+    """A batch's seeds as the int32 host tensor the executor carries: the
+    sample stage copies them to the card on the stream it samples on."""
+    return torch.from_numpy(np.ascontiguousarray(seeds, np.int32))
 
 
 def _fault_site(err: BaseException) -> str | None:
@@ -323,6 +348,13 @@ class StreamRuntime:
         self._prev_map = np.full(pipe.caches.store.num_nodes, -1, np.int64)
         self._prev_feats: torch.Tensor | None = None
         self._prev_nodes: np.ndarray | None = None
+        # Overlapped on a card: the sampling stream, the pinned num_unique
+        # scalar, the cache epoch last sampled, and per window slot the
+        # pinned buffers ``compute`` copies the counts and logits into.
+        self._sample_stream: torch.cuda.Stream | None = None
+        self._nu_host: torch.Tensor | None = None
+        self._sampled_epoch: int | None = None
+        self._retire_bufs: dict[int, list] = {}
 
     # ---------------------------------------------------- fault tolerance
     def _with_retry(self, ctx, site: str, fn):
@@ -373,6 +405,26 @@ class StreamRuntime:
                 args={"site": "host_fetch"},
             )
 
+    # ------------------------------------------------------- streams, events
+    def _on_streams(self, ctx) -> bool:
+        """Whether the batch runs on events and the sampling stream: its
+        clock drains at retire (depth > 1) and it samples on a card."""
+        return ctx.overlap and self._sample_graph().device.type == "cuda"
+
+    def _done(self, ctx, name: str, device) -> None:
+        """Record the event that marks stage ``name``'s dispatch done, on
+        ``device``'s current stream (what the stage's sync hands retire)."""
+        if self._on_streams(ctx):
+            ctx.outputs[_DONE + name] = torch.cuda.current_stream(device).record_event()
+
+    def _sampling_stream(self, device) -> torch.cuda.Stream:
+        """The runtime's sampling stream, high priority so its blocks are
+        scheduled ahead of the previous batch's gather grid."""
+        if self._sample_stream is None:
+            self._sample_stream = torch.cuda.Stream(device, priority=-1)
+            self._nu_host = torch.empty((), dtype=torch.int64, pin_memory=True)
+        return self._sample_stream
+
     # ------------------------------------------------------------- stages
     def sample(self, ctx):
         # The cache epoch the batch samples against: its hits are booked
@@ -385,9 +437,40 @@ class StreamRuntime:
             self._with_retry(ctx, "adj_fetch", lambda: self.injector.check("adj_fetch"))
         draws = None if self.draws is None else self.draws[self._batch]
         self._batch += 1
+        graph = self._sample_graph()
+        if not self._on_streams(ctx):
+            return self._sample(ctx, graph, ctx.payload, draws)
+        main = torch.cuda.current_stream(graph.device)
+        side = self._sampling_stream(graph.device)
+        with torch.cuda.stream(side):
+            seeds = ctx.payload
+            if seeds.is_cuda:
+                side.wait_stream(main)  # made on the compute stream
+            else:
+                # Copied first, while the sampling stream is idle: a copy
+                # from pageable memory waits for its stream.
+                seeds = seeds.to(graph.device)
+            if ctx.epoch != self._sampled_epoch:
+                # The caches may have been rewritten on the compute stream
+                # (a refresh, between batches): sample after those writes.
+                side.wait_stream(main)
+                self._sampled_epoch = ctx.epoch
+            out = self._sample(ctx, graph, seeds, draws)
+            done = side.record_event()
+        block, bh, _ = out
+        for t in (*block.frontiers, *block.neighbor_hits, *block.edge_slots, bh):
+            t.record_stream(main)  # read on the compute stream: not reused before
+        if block.dedup is not None:
+            for t in (block.dedup.unique_ids, block.dedup.inverse, block.dedup.num_unique):
+                t.record_stream(main)
+        main.wait_event(done)
+        ctx.outputs[_DONE + "sample"] = done
+        return out
+
+    def _sample(self, ctx, graph, seeds, draws):
         block = sample_blocks(
-            self._sample_graph(),
-            ctx.payload,
+            graph,
+            seeds,
             self.fanouts,
             generator=self.generator,
             draws=draws,
@@ -407,10 +490,18 @@ class StreamRuntime:
         """Cache the batch's unique-frontier view on its context:
         ``(dedup, num_unique, bucket, unique_ids[:bucket])``.  The bucket
         is the batch's own pow2 ceiling, so ``gathered_rows <= 2 *
-        unique_rows`` per batch."""
+        unique_rows`` per batch.  On the sampling stream the count is
+        copied into a pinned scalar and the host waits on that stream's
+        event alone."""
         dd = block.dedup
-        with self.tracer.span("sync:num_unique"):
-            nu = int(dd.num_unique)
+        if self._on_streams(ctx):
+            with self.tracer.span("sync:num_unique", args=WAIT_ARGS["event"]):
+                self._nu_host.copy_(dd.num_unique, non_blocking=True)
+                torch.cuda.current_stream(dd.num_unique.device).record_event().synchronize()
+                nu = int(self._nu_host)
+        else:
+            with self.tracer.span("sync:num_unique", args=WAIT_ARGS["read"]):
+                nu = int(dd.num_unique)
         bucket = pow2_bucket(nu, int(dd.unique_ids.shape[0]))
         view = (dd, nu, bucket, dd.unique_ids[:bucket])
         ctx.outputs["_dedup"] = view
@@ -440,9 +531,10 @@ class StreamRuntime:
             _, nu, _, nodes = self._dedup_view(ctx)
         else:
             nodes = ctx.outputs["sample"][0].input_nodes
-        with self.tracer.span("sync:prefetch_ids"):
+        with self.tracer.span("sync:prefetch_ids", args=WAIT_ARGS["read"]):
             nodes = nodes.cpu().numpy()  # the id sync: one device->host copy
         stage = lambda: self._prefetch(ctx, nodes, num_live=nu)  # noqa: E731
+        staged = None
         if self.injector is None:
             staged = stage()
         else:
@@ -455,8 +547,9 @@ class StreamRuntime:
                 # read the misses over the ordinary host path.  Outputs and
                 # hit counts are the same (prefetch only moves bytes early),
                 # so the batch is NOT marked degraded.
-                return None
-        self.prefetched_rows += staged.num_miss
+        if staged is not None:
+            self.prefetched_rows += staged.num_miss
+        self._done(ctx, "prefetch", self._sample_graph().device)
         return staged
 
     # ------------------------------------------------- cache-access hooks
@@ -529,6 +622,11 @@ class StreamRuntime:
             raise
 
     def feature(self, ctx):
+        out = self._feature(ctx)
+        self._done(ctx, "feature", out[0].device)
+        return out
+
+    def _feature(self, ctx):
         block = ctx.outputs["sample"][0]
         gather_kw = dict(
             use_kernel=self.use_kernel,
@@ -550,7 +648,7 @@ class StreamRuntime:
         self.gathered_rows += int(block.input_nodes.shape[0])
         nodes = None
         if self.pipe.reuse_prev_batch:
-            with self.tracer.span("sync:reuse_ids"):
+            with self.tracer.span("sync:reuse_ids", args=WAIT_ARGS["read"]):
                 nodes = block.input_nodes.cpu().numpy()  # the reuse lookup runs on the host
         if self._prev_feats is not None:
             # RAIN: a row the previous batch loaded is taken from its
@@ -584,25 +682,54 @@ class StreamRuntime:
         with torch.inference_mode():
             out = self.model(feats, inverse_index=inverse, tracer=self.tracer)
         self.fused_batches += self.model.fused_forwards - fused
+        if self._on_streams(ctx):
+            self._stage_for_record(ctx, out)
+            self._done(ctx, "compute", out.device)
         return out
+
+    def _stage_for_record(self, ctx, out) -> None:
+        """Copy the batch's adjacency and feature hit counts (one stacked
+        device tensor) and, when collected, its logits into the pinned
+        buffers of its window slot, ``non_blocking`` on the compute stream:
+        the compute event, recorded next, covers them.  The slot's next
+        batch writes them only after this one's ``record`` has read them."""
+        bh = ctx.outputs["sample"][1]
+        hsum = ctx.outputs["feature"][2]
+        bufs = self._retire_bufs.setdefault(ctx.slot, [None, None])
+        if bufs[0] is None:
+            bufs[0] = torch.empty(2, dtype=torch.int64, pin_memory=True)
+        bufs[0].copy_(torch.stack((bh.to(hsum.device), hsum)), non_blocking=True)
+        logits = None
+        if self.outputs is not None:
+            if bufs[1] is None or bufs[1].shape != out.shape or bufs[1].dtype != out.dtype:
+                bufs[1] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            logits = bufs[1].copy_(out, non_blocking=True)
+        ctx.outputs["_host"] = (bufs[0], logits)
 
     def _read(self, value) -> int:
         """``int(value)``: one blocking device-to-host read, traced as a
         ``sync:record`` wait span of its own."""
-        with self.tracer.span("sync:record"):
+        with self.tracer.span("sync:record", args=WAIT_ARGS["read"]):
             return int(value)
 
     def record(self, ctx) -> None:
         """Host-side accounting; runs per batch, in order, after the batch's
-        stage outputs are ready, so the int() reads are cheap.  With a
-        telemetry sink it also reads the batch's frontier, hit mask and
+        stage outputs are ready.  Overlapped on a card the counts and
+        logits are read from the pinned buffers ``compute`` filled, after
+        retire waited on the compute event: no read of the card.
+        Otherwise the int() reads are cheap, since the batch is done.  With
+        a telemetry sink it also reads the batch's frontier, hit mask and
         edge slots back to the host (the reference's semantics: one
         device-to-host read of each per retired batch; those reads have
         no wait span)."""
         block, bh, bt = ctx.outputs["sample"]
         feature_out = ctx.outputs["feature"]
         hit, hsum = feature_out[1], feature_out[2]
-        bh, bt, hsum = self._read(bh), self._read(bt), self._read(hsum)
+        staged = ctx.outputs.get("_host")
+        if staged is not None:
+            bh, hsum = staged[0].tolist()  # bt is a host int
+        else:
+            bh, bt, hsum = self._read(bh), self._read(bt), self._read(hsum)
         lookups = int(hit.shape[0])
         self.adj_hits += bh
         self.adj_lookups += bt
@@ -632,12 +759,28 @@ class StreamRuntime:
                     block.input_nodes.cpu().numpy(), hit.cpu().numpy(), slots
                 )
         if self.outputs is not None:
-            with self.tracer.span("sync:outputs"):
-                self.outputs.append(ctx.outputs["compute"].cpu().numpy())
+            if staged is not None:
+                self.outputs.append(staged[1].numpy().copy())
+            else:
+                with self.tracer.span("sync:outputs", args=WAIT_ARGS["read"]):
+                    self.outputs.append(ctx.outputs["compute"].cpu().numpy())
 
     def epoch_hit_rates(self) -> dict[int, dict]:
         """Per-epoch hit-rate summary (one entry per cache epoch served)."""
         return summarize_epoch_counters(self.epoch_counters)
+
+
+def _sync(name: str, values):
+    """A stage's sync: the event it recorded where it recorded one
+    (overlapped on a card), else ``values(ctx)``, the tensors it left in
+    flight."""
+    key = _DONE + name
+
+    def sync(ctx):
+        done = ctx.outputs.get(key)
+        return values(ctx) if done is None else done
+
+    return sync
 
 
 def stream_stages(runtime_of, *, prefetch: bool = False) -> list[Stage]:
@@ -645,29 +788,36 @@ def stream_stages(runtime_of, *, prefetch: bool = False) -> list[Stage]:
     :class:`StreamRuntime`s.
 
     ``runtime_of(ctx)`` resolves the runtime a batch belongs to.  Sync
-    values are what each stage leaves in flight (tuples of tensors) — what
-    the serial clock blocks on and the overlap clock drains.
+    values are what the serial clock blocks on and the overlap clock
+    drains: each stage's CUDA event where it recorded one (overlapped on a
+    card), else what it leaves in flight (tuples of tensors).
     ``prefetch=True`` inserts the miss-row staging stage between sample
     and feature; off, the executor drops the ``None`` placeholder."""
     return [
         Stage(
             "sample",
             lambda c: runtime_of(c).sample(c),
-            lambda c: (c.outputs["sample"][0].frontiers[-1], c.outputs["sample"][1]),
+            _sync(
+                "sample", lambda c: (c.outputs["sample"][0].frontiers[-1], c.outputs["sample"][1])
+            ),
         ),
         Stage(
             "prefetch",
             lambda c: runtime_of(c).prefetch_stage(c),
-            lambda c: c.outputs["prefetch"],
+            _sync("prefetch", lambda c: c.outputs["prefetch"]),
         )
         if prefetch
         else None,
         Stage(
             "feature",
             lambda c: runtime_of(c).feature(c),
-            lambda c: (c.outputs["feature"][0], c.outputs["feature"][2]),
+            _sync("feature", lambda c: (c.outputs["feature"][0], c.outputs["feature"][2])),
         ),
-        Stage("compute", lambda c: runtime_of(c).compute(c), lambda c: c.outputs["compute"]),
+        Stage(
+            "compute",
+            lambda c: runtime_of(c).compute(c),
+            _sync("compute", lambda c: c.outputs["compute"]),
+        ),
     ]
 
 
@@ -797,7 +947,7 @@ class GNNInferenceEngine:
         return [arr[i] for i in order]
 
     def _seeds(self, seeds: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(seeds, np.int32)).to(self.device)
+        return host_seeds(seeds).to(self.device)
 
     def warmup(
         self,
@@ -1054,7 +1204,7 @@ class GNNInferenceEngine:
             on_retire=on_retire,
             tracer=tracer,
         )
-        executor.run(self._seeds(b) for b in batches)
+        executor.run(host_seeds(b) for b in batches)
         self.last_outputs = rt.outputs
         resolved = cfg.resolved(pipe, pipeline_depth=depth).replace(
             prefetch=rt.prefetch,

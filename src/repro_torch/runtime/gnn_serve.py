@@ -25,8 +25,9 @@ all streams, and one budget-B cache serving everyone instead of N private
 B/N caches.
 
 A batch's latency is admit → retire: retire runs after the executor has
-waited for the batch's stage outputs (every stage's at depth > 1, each
-stage's at the serial depth 1), so it includes the card's time.
+waited for the batch's stage outputs (every stage's at depth > 1, on a
+card through the events the stages recorded; each stage's at the serial
+depth 1), so it includes the card's time.
 
 Fault handling (:mod:`repro_torch.core.faults`, :mod:`repro_torch.core.
 retry`): ``ServeConfig.fault_policy`` is ``"fail"`` (the first unrecovered
@@ -65,6 +66,7 @@ from repro_torch.runtime.gnn_engine import (
     PCIE5_BW,
     GNNInferenceEngine,
     StreamRuntime,
+    host_seeds,
     modeled_transfer_seconds,
     stream_stages,
     summarize_epoch_counters,
@@ -616,7 +618,7 @@ class MultiStreamServer:
         s.max_inflight_seen = max(s.max_inflight_seen, s.inflight)
         if self.tracer.enabled:
             self._trace_admit(s, batch=s.submitted - 1)
-        return (s, self.engine._seeds(seeds))
+        return (s, host_seeds(seeds))
 
     def _admission(self):
         """Lazy (stream, seeds) generator for the executor: pulled exactly

@@ -57,7 +57,7 @@ import torch
 from repro_torch.core.allocation import LayerwiseAllocation, allocate_layerwise_capacity
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.policies import PreparedPipeline
-from repro_torch.core.trace import NULL_TRACER, resolve_tracer
+from repro_torch.core.trace import NULL_TRACER, WAIT_ARGS, resolve_tracer
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.features import (
     FeatureStore,
@@ -299,11 +299,11 @@ def _probe_gather_seconds(
     the layer-wise analogue of presampling's per-stage laps (Eq. 1 input).
     One untimed gather first (a kernel's first launch loads its library).
     Each synchronized lap is a ``sync:probe`` wait span."""
-    with tracer.span("sync:probe"):
+    with tracer.span("sync:probe", args=WAIT_ARGS["device"]):
         block_until_ready(store.gather(ids, **gather_kw)[0])
     best = float("inf")
     for _ in range(reps):
-        with tracer.span("sync:probe"):
+        with tracer.span("sync:probe", args=WAIT_ARGS["device"]):
             t0 = time.perf_counter()
             block_until_ready(store.gather(ids, **gather_kw)[0])
             best = min(best, time.perf_counter() - t0)
@@ -480,10 +480,10 @@ def run_layerwise(
         def on_retire(ctx, out_host=out_host, hk=hits_key, lk=lookups_key):
             spec = ctx.payload
             t0 = time.perf_counter()
-            with tracer.span("sync:spill"):
+            with tracer.span("sync:spill", args=WAIT_ARGS["read"]):
                 out_host[spec.lo : spec.lo + spec.cnt].copy_(ctx.outputs["compute"][: spec.cnt])
             state["spill_s"] += time.perf_counter() - t0
-            with tracer.span("sync:hits"):
+            with tracer.span("sync:hits", args=WAIT_ARGS["read"]):
                 state[hk] += int(ctx.outputs["gather"][1])
             state[lk] += spec.cnt + spec.n_edges
 
@@ -512,7 +512,7 @@ def run_layerwise(
                 row_block=row_block,
             )
             warm_out = layer_fn(first, feats)
-            with tracer.span("sync:warm"):
+            with tracer.span("sync:warm", args=WAIT_ARGS["device"]):
                 block_until_ready(warm_out)
             del feats, warm_out
         with tracer.span(

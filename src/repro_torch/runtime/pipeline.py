@@ -20,6 +20,16 @@ logits, hit counts, and batch order are identical (equivalence-tested in
 tests/test_pipeline_executor.py); stage timers measure dispatch time and
 the in-flight wait is booked by ``StageClock.drain`` at retire boundaries.
 
+What a drain waits for is the stage's sync value's (utils/timing.py).  The
+sampled engine's stages, overlapped on a card, hand the CUDA event each
+recorded at the end of its dispatch, so retiring batch ``i`` waits for
+batch ``i``'s own work and not for batch ``i+1``'s, which is already
+queued behind it; the card keeps working while the host retires and
+dispatches.  Stages that hand tensors (presampling, the layer-wise path,
+every serial stage) are drained by a whole-device synchronize.  Each
+batch's context carries its clock's mode (``BatchContext.overlap``), so a
+stage knows whether anything will wait on it before retire.
+
 Stages communicate through a per-batch :class:`BatchContext`; cross-batch
 state (RNG keys, RAIN's reuse map, visit counters) lives in closures of the
 stage functions, which are always invoked in batch order.  The same
@@ -58,8 +68,9 @@ span: ``admit`` (pulling the item, lane ``executor``), one span per stage
 and ``retire`` (the drains and ``on_retire``) on the batch's slot lane,
 and the ``batch`` span around the batch's stages and retire.  At depth
 > 1 each stage's drain is a wait span, ``drain:<stage>``, inside
-``retire``; in serial mode the stage's synchronize is inside its stage
-span and its lap.
+``retire``, its ``wait`` arg ``event`` or ``device`` by what it waited on
+(``core.trace.WAIT_ARGS``); in serial mode the stage's synchronize is
+inside its stage span and its lap.
 """
 
 from __future__ import annotations
@@ -69,8 +80,8 @@ import dataclasses
 import heapq
 from typing import Any, Callable, Iterable, Sequence
 
-from repro_torch.core.trace import resolve_tracer
-from repro_torch.utils.timing import StageClock
+from repro_torch.core.trace import WAIT_ARGS, resolve_tracer
+from repro_torch.utils.timing import StageClock, wait_kind
 
 __all__ = ["BatchContext", "DRAIN", "PipelinedExecutor", "Stage"]
 
@@ -119,9 +130,15 @@ class BatchContext:
     (``slot 0`` …), making depth-``d`` overlap visible as ``d`` stacked
     timeline lanes; ``trace_t0`` is the tracer timestamp of the batch's
     dispatch start (µs), recorded only when tracing is enabled.
+
+    ``overlap`` is the mode of the clock the batch is booked on: ``True``
+    when its stages are drained at retire (depth > 1), ``False`` when each
+    is synchronized at its own boundary.
     """
 
-    __slots__ = ("index", "payload", "stream", "epoch", "outputs", "slot", "trace_t0")
+    __slots__ = (
+        "index", "payload", "stream", "epoch", "outputs", "slot", "trace_t0", "overlap"
+    )
 
     def __init__(self, index: int, payload: Any, stream: Any = None):
         self.index = index
@@ -131,6 +148,7 @@ class BatchContext:
         self.outputs: dict[str, Any] = {}
         self.slot = 0
         self.trace_t0 = 0.0
+        self.overlap = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +158,8 @@ class Stage:
     ``fn(ctx)`` computes the stage's output from ``ctx.payload`` and
     earlier stages' ``ctx.outputs``.  ``sync(ctx)`` returns the device
     value that marks the stage complete: in serial mode the clock blocks on
-    it at the stage boundary; for the final stage it is also what retire
-    drains in overlap mode.
+    it at the stage boundary; in overlap mode retire drains it.  It is an
+    event or tensors (:mod:`repro_torch.utils.timing`).
     """
 
     name: str
@@ -250,7 +268,7 @@ class PipelinedExecutor:
         try:
             while True:
                 # Pulling the next item is host work of its own (the
-                # admission generator, the seeds' copy to the card); it
+                # admission generator, the window's deadline check); it
                 # has no window slot yet, so it has a lane of its own.
                 with tracer.span("admit", lane="executor"):
                     item = next(items, _END)
@@ -264,6 +282,7 @@ class PipelinedExecutor:
                 ctx = BatchContext(index, payload, stream)
                 index += 1
                 clock = self._clock(ctx)
+                ctx.overlap = clock.overlap
                 lane, args = "slot 0", None
                 ctx.slot = self._acquire_slot()
                 if tracer.enabled:
@@ -326,8 +345,12 @@ class PipelinedExecutor:
                 # and the stage totals would under-count the loop's wall clock.
                 for st in self.stages:
                     if st.sync is not None:
-                        with tracer.span(f"drain:{st.name}" if tracer.enabled else "drain"):
-                            clock.drain(st.name, st.sync(ctx))
+                        value = st.sync(ctx)
+                        with tracer.span(
+                            f"drain:{st.name}" if tracer.enabled else "drain",
+                            args=WAIT_ARGS[wait_kind(value)],
+                        ):
+                            clock.drain(st.name, value)
             if self.on_retire is not None:
                 self.on_retire(ctx)
         if tracer.enabled:

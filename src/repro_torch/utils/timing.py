@@ -7,9 +7,19 @@ reproducing the per-stage Eq. 1 decomposition exactly; in overlap mode
 stages only measure host dispatch time and the wait for in-flight device
 work is booked by ``drain()`` at pipeline-retire boundaries.
 
-Sync values are tensors or (nested) tuples/lists of tensors.  Waiting on
-them synchronizes every CUDA device they live on; CPU tensors are already
-complete when an op returns, so for them the wait is a no-op.
+A sync value is one of two kinds, and what a wait on it waits for follows
+the kind:
+
+* an *event* (a ``torch.cuda.Event``, or anything with ``synchronize()``
+  and ``wait()``), which a stage of the sampled engine records on the stream
+  it ran on, at the end of its dispatch, when it runs overlapped on a card
+  (runtime/gnn_engine.py): the wait is ``event.synchronize()``, so it waits
+  for that batch's own work and never for work queued after it;
+* tensors or (nested) tuples/lists of tensors, which presampling, the
+  layer-wise path and every serial (depth 1) stage hand over: the wait
+  synchronizes every CUDA device they live on, a *device* wait.  CPU
+  tensors are already complete when an op returns, so for them the wait
+  is a no-op.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ import time
 
 import torch
 
-__all__ = ["StageClock", "block_until_ready"]
+__all__ = ["StageClock", "block_until_ready", "wait_kind"]
 
 
 def _cuda_devices(value, out: set) -> None:
@@ -31,12 +41,30 @@ def _cuda_devices(value, out: set) -> None:
             _cuda_devices(v, out)
 
 
+def _is_event(value) -> bool:
+    """Whether ``value`` is an event: not a tensor, and has
+    ``synchronize()`` and ``wait()`` (a ``torch.cuda.Event``)."""
+    return not isinstance(value, (torch.Tensor, tuple, list)) and (
+        callable(getattr(value, "synchronize", None)) and callable(getattr(value, "wait", None))
+    )
+
+
+def wait_kind(value) -> str:
+    """The kind of wait :func:`block_until_ready` makes on ``value``:
+    ``"event"`` for an event, else ``"device"`` (the whole-device path)."""
+    return "event" if _is_event(value) else "device"
+
+
 def block_until_ready(value):
     """Wait until the device work producing ``value`` has finished.
 
-    Walks tuples and lists of tensors and calls
-    ``torch.cuda.synchronize`` once per CUDA device found; returns
-    ``value`` unchanged."""
+    An event waits with ``event.synchronize()``: the work recorded before
+    it on its stream, nothing else.  Otherwise walks tuples and lists of
+    tensors and calls ``torch.cuda.synchronize`` once per CUDA device
+    found.  Returns ``value`` unchanged."""
+    if _is_event(value):
+        value.synchronize()
+        return value
     devices: set = set()
     _cuda_devices(value, devices)
     for dev in devices:
@@ -58,6 +86,8 @@ class StageClock:
     :meth:`drain` when the pipeline retires a batch and is attributed (in
     ``totals`` only, not ``laps``) to the stage whose output is drained, so
     ``sum(totals.values())`` stays consistent with the loop's wall clock.
+    A drain waits on the stage's event where the stage recorded one (the
+    sampled engine's stages on a card), else on the whole device.
     """
 
     def __init__(self, *, overlap: bool = False):
@@ -86,7 +116,8 @@ class StageClock:
             self._lap(name, time.perf_counter() - t0)
 
     def drain(self, name: str, value) -> None:
-        """Block on an in-flight device value; attribute the wait to ``name``."""
+        """Block on an in-flight device value (an event, or tensors: see
+        :func:`block_until_ready`); attribute the wait to ``name``."""
         t0 = time.perf_counter()
         block_until_ready(value)
         dt = time.perf_counter() - t0

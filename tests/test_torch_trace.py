@@ -37,22 +37,24 @@ SAMPLED = EngineConfig(pipeline_depth=2, use_kernel=True, dedup=True)
 LAYERWISE = EngineConfig(mode="layerwise", chunk_size=256, pipeline_depth=2, use_kernel=True)
 BATCHES = 3
 
-# Every wait span and the span it nests in, on its lane.
+# Every wait span, the span it nests in on its lane, and its ``wait`` arg
+# on the CPU route: the drains take the whole-device path (a card's
+# overlapped sampled route waits on events instead: the ``gpu`` tests).
 SAMPLED_WAITS = {
-    "sync:num_unique": "sample",
-    "drain:sample": "retire",
-    "drain:feature": "retire",
-    "drain:compute": "retire",
-    "sync:record": "retire",
-    "sync:outputs": "retire",
+    "sync:num_unique": ("sample", "read"),
+    "drain:sample": ("retire", "device"),
+    "drain:feature": ("retire", "device"),
+    "drain:compute": ("retire", "device"),
+    "sync:record": ("retire", "read"),
+    "sync:outputs": ("retire", "read"),
 }
 LAYERWISE_WAITS = {
-    "sync:probe": "probe",
-    "sync:warm": "warm",
-    "drain:gather": "retire",
-    "drain:compute": "retire",
-    "sync:spill": "retire",
-    "sync:hits": "retire",
+    "sync:probe": ("probe", "device"),
+    "sync:warm": ("warm", "device"),
+    "drain:gather": ("retire", "device"),
+    "drain:compute": ("retire", "device"),
+    "sync:spill": ("retire", "read"),
+    "sync:hits": ("retire", "read"),
 }
 SAMPLED_SPANS = {"admit", "sample", "feature", "compute", "retire", "batch", *SAMPLED_WAITS}
 LAYERWISE_SPANS = {
@@ -110,11 +112,13 @@ def _inside(child, parent, eps=1e-3):
     )
 
 
-def _assert_waits_nest(spans, parent_of):
+def _assert_waits_nest(spans, waits):
     for w in (e for e in spans if is_wait_span(e["name"])):
+        parent, kind = waits[w["name"]]
         assert any(
-            p["name"] == parent_of[w["name"]] and _inside(w, p) for p in spans
-        ), f"{w['name']} at {w['ts']} nests in no {parent_of[w['name']]}"
+            p["name"] == parent and _inside(w, p) for p in spans
+        ), f"{w['name']} at {w['ts']} nests in no {parent}"
+        assert w["args"] == {"wait": kind}, w
 
 
 def test_outside_a_profiler_nothing_records(engine):
@@ -139,6 +143,8 @@ def test_sampled_run_records_its_spans(engine):
     s = summarize_trace(tracer.events)
     # 1 num_unique read, 3 drains, 3 record reads and 1 read of the logits.
     assert s["waits"] == 8 * BATCHES
+    assert s["wait_kinds"] == {"device": 3 * BATCHES, "read": 5 * BATCHES}
+    assert s["device_syncs"] == 3 * BATCHES
     assert validate_trace(tracer.events) == []
 
 
@@ -158,6 +164,8 @@ def test_layerwise_run_records_its_spans(engine):
     assert probe["args"]["t_feat_s"] > 0 and probe["args"]["t_embed_s"] > 0
     s = summarize_trace(tracer.events)
     assert s["waits"] == 4 * items + 6 + report.num_layers
+    assert s["wait_kinds"] == {"device": 2 * items + 6 + report.num_layers, "read": 2 * items}
+    assert s["device_syncs"] == s["wait_kinds"]["device"]
 
 
 @pytest.mark.parametrize("route", ["sampled", "layerwise"])
@@ -241,6 +249,26 @@ def test_self_time_and_waits_by_hand():
     })
     assert s["waits"] == 4 and s["wait_ms"] == pytest.approx((5 + 10 + 2 + 4) / 1e3)
     assert s["stages"]["batch"]["total_ms"] == pytest.approx(0.1)
+
+
+def test_wait_kinds_by_hand():
+    """Each wait span counts under its ``wait`` arg; ``device_syncs`` is
+    the ``device`` count; a span that is no wait span counts in none."""
+    tr = Tracer()
+    for name, kind in [("drain:sample", "event"), ("drain:compute", "event"),
+                       ("sync:num_unique", "event"), ("drain:gather", "device"),
+                       ("sync:record", "read"), ("sync:outputs", "read"),
+                       ("sample", "device")]:
+        with tr.span(name, lane="slot 0", args={"wait": kind}):
+            pass
+    with tr.span("sync:bare", lane="slot 0"):
+        pass
+    s = summarize_trace(tr.events)
+    assert s["waits"] == 7
+    assert s["wait_kinds"] == {"device": 1, "event": 3, "read": 2}
+    assert s["device_syncs"] == 1
+    empty = summarize_trace([])
+    assert empty["wait_kinds"] == {} and empty["device_syncs"] == 0
 
 
 def test_a_span_without_a_lane_joins_the_enclosing_one():
