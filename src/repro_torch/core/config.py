@@ -1,19 +1,16 @@
 """Typed execution configs — the one object the engine/serve knobs live in.
 
-Before this module the execution knobs (``pipeline_depth``, ``prefetch``,
-``use_kernel``, ``gather_buffers``, ``dedup``, the refresh triggers, the
-serving caps, the mesh width) flowed as ~10 loose keyword arguments through
-``PreparedPipeline`` → engine → serving layers → CLI, each layer re-listing
-and re-defaulting them by hand.  Adding a second inference *mode*
-(layer-wise full-graph scoring, ``runtime/layerwise.py``) made that sprawl
-untenable, so the knobs now consolidate into two frozen dataclasses:
+The execution knobs live in two frozen dataclasses:
 
   - :class:`EngineConfig` — everything one inference run needs: the mode
-    (``sampling`` | ``layerwise``), the executor window, the four gather
-    knobs, the layer-wise chunk size, and the online-refresh trigger
-    fields.  ``None`` fields mean "inherit the prepared pipeline's (or the
-    engine's) default" — a *resolved* config (every field concrete) is
-    what reports carry and :meth:`EngineConfig.to_dict` echoes.
+    (``sampling`` | ``layerwise``), the executor window, the three gather
+    route fields (``prefetch``, ``use_kernel``, ``dedup``), the layer-wise
+    chunk size, and the online-refresh trigger fields.  ``None`` fields
+    mean "inherit the prepared pipeline's (or the engine's) default".
+    :meth:`EngineConfig.resolved` is the one place that rule is written:
+    the resolved config (every field concrete) is the route a run's
+    ``StreamRuntime`` takes, and what reports carry and
+    :meth:`EngineConfig.to_dict` echoes.
   - :class:`ServeConfig` — an :class:`EngineConfig` plus the serving-layer
     knobs (in-flight cap, admission policy, SLO, arrival process, mesh).
 
@@ -53,7 +50,7 @@ class EngineConfig:
     """Execution knobs for one inference run.
 
     ``None`` means "inherit the default" (the engine's ``pipeline_depth``,
-    the prepared pipeline's gather knobs, the mode's chunk size); reports
+    the prepared pipeline's gather route, the mode's chunk size); reports
     carry the *resolved* config with every field concrete.  Outputs and
     hit accounting are invariant under every knob except ``mode`` — the
     knobs only move bytes (and wall clock)."""
@@ -61,8 +58,7 @@ class EngineConfig:
     mode: str = "sampling"  # "sampling" (mini-batch) | "layerwise" (full graph)
     pipeline_depth: int | str | None = None  # executor window; int or "auto"
     prefetch: bool | None = None  # stage missed host rows ahead of their gather
-    use_kernel: bool | None = None  # route gathers through the Pallas kernel
-    gather_buffers: int | None = None  # kernel VMEM row-tile slots
+    use_kernel: bool | None = None  # route gathers through the CUDA cached_gather kernels
     dedup: bool | None = None  # sorted-unique frontier gathers (sampling mode)
     chunk_size: int | None = None  # layer-wise node-range chunk (layerwise mode)
     # Online cache refresh (runtime/cache_refresh.py), inline to avoid a
@@ -77,8 +73,6 @@ class EngineConfig:
         if self.pipeline_depth is not None and self.pipeline_depth != "auto":
             if int(self.pipeline_depth) < 1:
                 raise ValueError(f"pipeline_depth must be >= 1, got {self.pipeline_depth}")
-        if self.gather_buffers is not None and self.gather_buffers < 1:
-            raise ValueError(f"gather_buffers must be >= 1, got {self.gather_buffers}")
         if self.chunk_size is not None and self.chunk_size < 1:
             raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
 
@@ -104,7 +98,6 @@ class EngineConfig:
             pipeline_depth=args.pipeline_depth,
             prefetch=args.prefetch,
             use_kernel=args.use_kernel,
-            gather_buffers=args.gather_buffers,
             dedup=args.dedup,
             chunk_size=args.chunk_size,
             refresh_mode=args.refresh_mode,
@@ -126,31 +119,20 @@ class EngineConfig:
             miss_threshold=self.refresh_miss_threshold,
         )
 
-    def resolved(self, pipe=None, *, pipeline_depth=None, chunk_size=None) -> "EngineConfig":
-        """Fill every ``None`` field from the prepared pipeline's knob
-        defaults (and the given resolved depth / chunk size) — the concrete
-        config a report echoes."""
+    def resolved(self, pipe, *, pipeline_depth=None) -> "EngineConfig":
+        """The gather route against the prepared pipeline ``pipe``, and the
+        concrete config a report echoes: each ``None`` route field takes
+        the pipeline's default, ``dedup`` is off under RAIN's
+        previous-batch reuse (its reuse map addresses the frontier
+        positions dedup collapses, so reuse wins), and the depth and chunk
+        size are filled in."""
+        dedup = pipe.dedup if self.dedup is None else self.dedup
         return self.replace(
-            pipeline_depth=(
-                self.pipeline_depth if pipeline_depth is None else pipeline_depth
-            ),
-            prefetch=(pipe.prefetch if pipe else False) if self.prefetch is None else self.prefetch,
-            use_kernel=(
-                (pipe.use_kernel if pipe else False)
-                if self.use_kernel is None
-                else self.use_kernel
-            ),
-            gather_buffers=(
-                (pipe.gather_buffers if pipe else 2)
-                if self.gather_buffers is None
-                else self.gather_buffers
-            ),
-            dedup=(pipe.dedup if pipe else False) if self.dedup is None else self.dedup,
-            chunk_size=(
-                chunk_size
-                if chunk_size is not None
-                else (DEFAULT_CHUNK_SIZE if self.chunk_size is None else self.chunk_size)
-            ),
+            pipeline_depth=self.pipeline_depth if pipeline_depth is None else pipeline_depth,
+            prefetch=pipe.prefetch if self.prefetch is None else self.prefetch,
+            use_kernel=pipe.use_kernel if self.use_kernel is None else self.use_kernel,
+            dedup=dedup and not pipe.reuse_prev_batch,
+            chunk_size=DEFAULT_CHUNK_SIZE if self.chunk_size is None else self.chunk_size,
         )
 
 

@@ -66,7 +66,6 @@ class PreparedPipeline:
     # per run; outputs and hit accounting are knob-invariant):
     prefetch: bool = False  # stage missed host rows onto the device before the gather
     use_kernel: bool = False  # route gathers through the CUDA cached_gather kernels
-    gather_buffers: int = 2  # validated for parity with the reference; no effect
     dedup: bool = False  # gather/model on sorted-unique frontiers only
 
 
@@ -455,10 +454,10 @@ def prepare(policy: str, dataset: SyntheticGraphDataset, **kw) -> PreparedPipeli
     """Dispatch to a policy's ``prepare_*`` on ``device`` (CUDA unless
     ``device="cpu"``).
 
-    Execution knobs (``prefetch``, ``use_kernel``, ``gather_buffers``,
-    ``dedup``) are policy-independent: they are recorded on the returned
-    pipeline as the defaults every run resolves against, without changing
-    what gets cached."""
+    Execution knobs (``prefetch``, ``use_kernel``, ``dedup``) are
+    policy-independent: they are recorded on the returned pipeline as the
+    defaults every run resolves against (``EngineConfig.resolved``),
+    without changing what gets cached."""
     if policy not in POLICIES:
         raise KeyError(f"unknown policy {policy!r}; have {sorted(POLICIES)}")
     if kw.get("pipeline_depth") == "auto":
@@ -468,11 +467,8 @@ def prepare(policy: str, dataset: SyntheticGraphDataset, **kw) -> PreparedPipeli
     exec_kw = {
         "prefetch": bool(kw.pop("prefetch", False)),
         "use_kernel": bool(kw.pop("use_kernel", False)),
-        "gather_buffers": int(kw.pop("gather_buffers", 2)),
         "dedup": bool(kw.pop("dedup", False)),
     }
-    if exec_kw["gather_buffers"] < 1:
-        raise ValueError(f"gather_buffers must be >= 1, got {exec_kw['gather_buffers']}")
     fn = POLICIES[policy]
     if policy == "dgl":
         pipe = fn(dataset, device=kw.get("device"))

@@ -220,7 +220,6 @@ class FeatureStore:
         indices: torch.Tensor,
         *,
         use_kernel: bool = False,
-        gather_buffers: int = 2,
         prefetched: PrefetchedMisses | None = None,
         row_block: int | None = None,
         injector=None,
@@ -276,12 +275,9 @@ class FeatureStore:
                     host_idx,
                     pos,
                     row_block=row_block,
-                    gather_buffers=gather_buffers,
                 )
             else:
-                feats = cached_gather(
-                    self.hot_table, host_src, host_idx, pos, gather_buffers=gather_buffers
-                )
+                feats = cached_gather(self.hot_table, host_src, host_idx, pos)
             return feats, hit
         if prefetched is not None:
             cached = self.hot_table[pos.clamp(0, self.hot_table.shape[0] - 1).to(torch.int64)]

@@ -282,7 +282,6 @@ class ShardedFeatureStore:
         part: ShardPartition,
         *,
         use_kernel: bool = False,
-        gather_buffers: int = 2,
         prefetched: ShardedPrefetch | None = None,
         row_block: int | None = None,
         tracer=None,
@@ -329,7 +328,6 @@ class ShardedFeatureStore:
                         s,
                         buf[: part.seg_len[s]],
                         use_kernel=use_kernel,
-                        gather_buffers=gather_buffers,
                         row_block=row_block,
                     )
                 parts_f.append(feats_s)
@@ -353,7 +351,6 @@ class ShardedFeatureStore:
                 feats_s, hit_s = shard.gather(
                     ids_dev,
                     use_kernel=use_kernel,
-                    gather_buffers=gather_buffers,
                     prefetched=pf,
                     row_block=row_block,
                 )
@@ -373,7 +370,7 @@ class ShardedFeatureStore:
         return feats, hit
 
     def _failover_gather(
-        self, s: int, local: np.ndarray, *, use_kernel: bool, gather_buffers: int, row_block
+        self, s: int, local: np.ndarray, *, use_kernel: bool, row_block
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Serve a DOWN shard's segment (``local``: its real local ids, the
         pow2 pad trimmed) from its host table, on the assembling device.
@@ -398,9 +395,7 @@ class ShardedFeatureStore:
         miss = torch.full_like(ids, -1)
         hot = fb.host_table.new_zeros((1, fb.feat_dim), device=dev)  # never read
         if row_block is not None and row_block > 1:
-            feats = cached_gather_blocks(
-                hot, fb.host_table, ids, miss, row_block=row_block, gather_buffers=gather_buffers
-            )
+            feats = cached_gather_blocks(hot, fb.host_table, ids, miss, row_block=row_block)
         else:
-            feats = cached_gather(hot, fb.host_table, ids, miss, gather_buffers=gather_buffers)
+            feats = cached_gather(hot, fb.host_table, ids, miss)
         return feats, hit

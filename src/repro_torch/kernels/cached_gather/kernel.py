@@ -46,10 +46,6 @@ or raises — there is no fallback.  The host operand is then a CUDA tensor
 on the same device or a pinned CPU tensor (pageable memory would fault).
 Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``, bumped only where the kernel is launched.
-
-``gather_buffers`` was the TPU kernels' VMEM-slot count; it has no
-counterpart here and stays a validated argument that does not change the
-output.
 """
 
 from __future__ import annotations
@@ -256,15 +252,11 @@ def cached_gather(
     host_table: torch.Tensor,  # [N, F]
     indices: torch.Tensor,  # int32 [S]
     positions: torch.Tensor,  # int32 [S] (slot or -1)
-    *,
-    gather_buffers: int = 2,
 ) -> torch.Tensor:
     """Two-source gather: a persistent grid whose warps copy chunks of
     rows, each row from its winning source only (for short rows from a
     pinned host table, hit and miss rows by separate warps)."""
     _validate(hot_table, host_table, indices, positions)
-    if gather_buffers < 1:
-        raise ValueError(f"gather_buffers must be >= 1, got {gather_buffers}")
     if not _on_cuda(hot_table, host_table, indices, positions):
         return cached_gather_ref(hot_table, host_table, indices, positions)
     if indices.shape[0] == 0:  # nothing to gather; skip the launch
@@ -393,7 +385,6 @@ def cached_gather_blocks(
     positions: torch.Tensor,
     *,
     row_block: int = ROW_BLOCK,
-    gather_buffers: int = 2,
 ) -> torch.Tensor:
     """Row-block two-source gather for sorted-run frontiers.
 
@@ -410,17 +401,13 @@ def cached_gather_blocks(
     zero row, and larger slots clamp into the padded table.  Host ids
     clamp into the real host table, padded or not."""
     _validate(hot_table, host_table, indices, positions)
-    if gather_buffers < 1:
-        raise ValueError(f"gather_buffers must be >= 1, got {gather_buffers}")
     if row_block < 1:
         raise ValueError(f"row_block must be >= 1, got {row_block}")
     on_cuda = _on_cuda(hot_table, host_table, indices, positions)
     if indices.shape[0] == 0:
         return hot_table.new_empty((0, hot_table.shape[1]))
     if row_block == 1:
-        return cached_gather(
-            hot_table, host_table, indices, positions, gather_buffers=gather_buffers
-        )
+        return cached_gather(hot_table, host_table, indices, positions)
     if hot_table.shape[0] < row_block:
         hot_table = torch.cat(
             [hot_table, hot_table.new_zeros((row_block - hot_table.shape[0], hot_table.shape[1]))]

@@ -26,7 +26,6 @@ def cached_feature_gather(
     positions: torch.Tensor,
     *,
     use_kernel: bool = False,
-    gather_buffers: int = 2,
 ) -> torch.Tensor:
     """Gather feature rows via DCI's dual-source cache.
 
@@ -39,17 +38,13 @@ def cached_feature_gather(
       positions: ``int32[S]`` — each id's slot in ``hot_table``, or ``-1``.
       use_kernel: route through the CUDA kernel wrapper; required for
         CUDA tensors.
-      gather_buffers: validated for parity with the reference; it does not
-        change the output.
 
     Returns:
       ``[S, F]`` — row ``i`` is ``hot_table[positions[i]]`` on a hit,
       ``host_table[indices[i]]`` on a miss.
     """
     if use_kernel:
-        return cached_gather(
-            hot_table, host_table, indices, positions, gather_buffers=gather_buffers
-        )
+        return cached_gather(hot_table, host_table, indices, positions)
     if any(t.is_cuda for t in (hot_table, host_table, indices, positions)):
         raise ValueError("cached_feature_gather on CUDA tensors needs use_kernel=True")
     return cached_gather_ref(hot_table, host_table, indices, positions)

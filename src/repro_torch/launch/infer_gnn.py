@@ -115,12 +115,6 @@ def main(argv: list[str] | None = None) -> None:
         help="route feature gathers through the CUDA cached_gather kernels",
     )
     ap.add_argument(
-        "--gather-buffers",
-        type=int,
-        default=2,
-        help="validated for parity with the reference; no effect on the card",
-    )
-    ap.add_argument(
         "--dedup",
         action="store_true",
         help="sort-and-unique each input frontier on the device and gather/model "

@@ -11,15 +11,18 @@ Batch execution is delegated to the staged executor in
 :mod:`repro_torch.runtime.pipeline`: ``pipeline_depth=1`` is the paper's
 serial loop (a device sync after every stage), ``depth>1`` keeps that many
 batches in flight so batch *i+1*'s sampling/gather overlap batch *i*'s
-forward on the CUDA stream.  Four execution knobs — ``prefetch`` (stage
-each batch's missed host rows onto the device in a stage of their own,
-between sample and feature, copied on a side CUDA stream), ``use_kernel``
-(route gathers through the CUDA ``cached_gather`` kernels),
-``gather_buffers`` (validated, no effect on the card) and ``dedup``
-(sort-and-unique each input frontier on the device and
-gather/prefetch/model one row per DISTINCT node, expanding through the
-inverse map) — default from the prepared pipeline.  Outputs, hit counts
-and batch order are identical under every knob combination.
+forward on the CUDA stream.  The gather route is three knobs —
+``prefetch`` (stage each batch's missed host rows onto the device in a
+stage of their own, between sample and feature, copied on a side CUDA
+stream), ``use_kernel`` (route gathers through the CUDA ``cached_gather``
+kernels) and ``dedup`` (sort-and-unique each input frontier on the device
+and gather/prefetch/model one row per DISTINCT node, expanding through the
+inverse map) — resolved once against the prepared pipeline by
+:meth:`~repro_torch.core.config.EngineConfig.resolved`; each
+:class:`StreamRuntime` takes that resolved config as its ``route``.
+Outputs, hit counts and batch order are identical under every route.
+Warm-up and the ``"auto"`` depth probe run one batch through a scratch
+runtime's own stages (:meth:`StreamRuntime.run_batch`).
 
 Overlapped on a card (``pipeline_depth > 1``, a CUDA device), no stage
 waits on the whole device.  The sample stage copies the seeds and samples
@@ -66,7 +69,6 @@ come per epoch in ``InferenceReport.epoch_hits``.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
@@ -76,14 +78,14 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.faults import InjectedFault
 from repro_torch.core.policies import PreparedPipeline, prepare
 from repro_torch.core.retry import RetryExhausted, StageTimeout, call_with_retry
-from repro_torch.core.trace import WAIT_ARGS, resolve_tracer
+from repro_torch.core.trace import NULL_TRACER, WAIT_ARGS, resolve_tracer
 from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.sampling import pow2_bucket, sample_blocks
 from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
 from repro_torch.models.gnn.models import GNN, init_params
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
-from repro_torch.utils.timing import StageClock, block_until_ready
+from repro_torch.utils.timing import StageClock
 
 if TYPE_CHECKING:
     from repro_torch.runtime.layerwise import LayerwiseReport
@@ -284,7 +286,11 @@ class StreamRuntime:
 
     Hits are also counted per cache epoch (``epoch_counters``), and with
     online refresh on, each retired batch is recorded into the refresh
-    manager's ``telemetry`` sink."""
+    manager's ``telemetry`` sink.
+
+    ``route`` is the gather route, an :class:`EngineConfig` resolved
+    against ``pipe`` (:meth:`EngineConfig.resolved`); ``prefetch``,
+    ``use_kernel`` and ``dedup`` are reads of it."""
 
     def __init__(
         self,
@@ -292,13 +298,10 @@ class StreamRuntime:
         model: GNN,
         *,
         fanouts: tuple[int, ...],
+        route: EngineConfig,
         generator: torch.Generator | None = None,
         draws: Sequence[Sequence[torch.Tensor]] | None = None,
         collect_outputs: bool = False,
-        prefetch: bool | None = None,
-        use_kernel: bool | None = None,
-        gather_buffers: int | None = None,
-        dedup: bool | None = None,
         injector=None,
         retry_policy=None,
         degraded_mode: bool = False,
@@ -310,13 +313,10 @@ class StreamRuntime:
         self.fanouts = tuple(fanouts)
         self.generator = generator
         self.draws = draws
-        self.prefetch = pipe.prefetch if prefetch is None else prefetch
-        self.use_kernel = pipe.use_kernel if use_kernel is None else use_kernel
-        self.gather_buffers = pipe.gather_buffers if gather_buffers is None else gather_buffers
-        # RAIN's reuse map addresses individual frontier positions of the
-        # previous batch, the layout dedup collapses, so the two are
-        # mutually exclusive and reuse wins.
-        self.dedup = (pipe.dedup if dedup is None else dedup) and not pipe.reuse_prev_batch
+        self.route = route
+        self.prefetch = route.prefetch
+        self.use_kernel = route.use_kernel
+        self.dedup = route.dedup
         # Fault tolerance: with no injector and no retry policy every guard
         # below is one ``is None`` test and the stages are the plain ones.
         self.injector = injector
@@ -327,7 +327,7 @@ class StreamRuntime:
         self.kernel_fallbacks = 0  # kernel_gather faults rerouted to the table route
         self._retry_seq = 0  # per-stream retry-key sequence (deterministic jitter)
         self._batch = 0  # this stream's batches sampled so far: indexes ``draws``
-        self.tracer = resolve_tracer(None)  # installed by the owning engine/server
+        self.tracer = NULL_TRACER  # installed by the owning engine/server
         self.adj_hits = 0
         self.adj_lookups = 0
         self.feat_hits = 0
@@ -344,8 +344,10 @@ class StreamRuntime:
         # None records nothing at retire.
         self.telemetry = None
         self.outputs: list[np.ndarray] | None = [] if collect_outputs else None
-        # RAIN cross-batch reuse state (only touched when the policy asks).
-        self._prev_map = np.full(pipe.caches.store.num_nodes, -1, np.int64)
+        # RAIN cross-batch reuse state (allocated only when the policy asks).
+        self._prev_map = (
+            np.full(pipe.caches.store.num_nodes, -1, np.int64) if pipe.reuse_prev_batch else None
+        )
         self._prev_feats: torch.Tensor | None = None
         self._prev_nodes: np.ndarray | None = None
         # Overlapped on a card: the sampling stream, the pinned num_unique
@@ -628,11 +630,7 @@ class StreamRuntime:
 
     def _feature(self, ctx):
         block = ctx.outputs["sample"][0]
-        gather_kw = dict(
-            use_kernel=self.use_kernel,
-            gather_buffers=self.gather_buffers,
-            prefetched=ctx.outputs.get("prefetch"),
-        )
+        gather_kw = dict(use_kernel=self.use_kernel, prefetched=ctx.outputs.get("prefetch"))
         if self.dedup:
             # Gather each distinct row once (sorted ids → the row-block
             # kernel's contiguous runs on the kernel route); the per-visit
@@ -768,6 +766,14 @@ class StreamRuntime:
     def epoch_hit_rates(self) -> dict[int, dict]:
         """Per-epoch hit-rate summary (one entry per cache epoch served)."""
         return summarize_epoch_counters(self.epoch_counters)
+
+    def run_batch(self, seeds: np.ndarray, clock: StageClock | None = None) -> None:
+        """Run one batch through this runtime's stages, each synchronized
+        at its boundary (the serial executor over one batch, without
+        ``record``), traced on the runtime's tracer: warm-up and the depth
+        probe.  ``clock``, when given, takes the stage laps."""
+        stages = stream_stages(lambda c: self, prefetch=self.prefetch)
+        PipelinedExecutor(stages, clock=clock, tracer=self.tracer).run([host_seeds(seeds)])
 
 
 def _sync(name: str, values):
@@ -906,7 +912,7 @@ class GNNInferenceEngine:
         stream_seeds: list[int] | None = None,
     ) -> PreparedPipeline:
         """Presample, split and fill the caches on the engine's device; the
-        config's gather knobs become the pipeline's run defaults.
+        config's gather route becomes the pipeline's run default.
         ``stream_seeds`` profiles the union workload of several request
         streams (multi-stream serving) at the same total presample budget."""
         cfg = config if config is not None else EngineConfig()
@@ -922,7 +928,6 @@ class GNNInferenceEngine:
             stream_seeds=stream_seeds,
             prefetch=bool(cfg.prefetch),
             use_kernel=bool(cfg.use_kernel),
-            gather_buffers=2 if cfg.gather_buffers is None else cfg.gather_buffers,
             dedup=bool(cfg.dedup),
             device=self.device,
         )
@@ -949,77 +954,32 @@ class GNNInferenceEngine:
     def _seeds(self, seeds: np.ndarray) -> torch.Tensor:
         return host_seeds(seeds).to(self.device)
 
-    def warmup(
-        self,
-        seeds: np.ndarray,
-        *,
-        prefetch: bool | None = None,
-        use_kernel: bool | None = None,
-        gather_buffers: int | None = None,
-        dedup: bool | None = None,
-    ) -> None:
-        """Run one batch through the route the run will use, outside any
-        timed region: the first kernel launch builds and loads the CUDA
-        library, cuBLAS sets up on its first product, and with prefetch
-        the side stream, the pinned-buffer pool and the pack worker start.
-        Draws come from a generator of its own, so the run's sequence is
-        untouched.  (The reference also warms every pow2 pack bucket,
-        because each compiles its own gather program; eager torch compiles
-        nothing per shape.)"""
+    def _scratch_runtime(self, route: EngineConfig, seed: int) -> StreamRuntime:
+        """A runtime outside any run, drawing from a generator of its own
+        seeded ``seed``: no injector, retry policy or telemetry."""
+        return StreamRuntime(
+            self.pipeline,
+            self.model,
+            fanouts=self.fanouts,
+            route=route,
+            generator=torch.Generator(device=self.device).manual_seed(seed),
+        )
+
+    def warmup(self, seeds: np.ndarray, route: EngineConfig | None = None) -> None:
+        """Run one batch through ``route`` (default: the prepared
+        pipeline's) outside any timed region: the first kernel launch
+        builds and loads the CUDA library, cuBLAS sets up on its first
+        product, and with prefetch the side stream, the pinned-buffer pool
+        and the pack worker start.  The batch runs through a scratch
+        runtime's stages, drawing from a generator of its own seeded
+        ``seed + 1``, so the run's sequence is untouched.  (The reference
+        also warms every pow2 pack bucket, because each compiles its own
+        gather program; eager torch compiles nothing per shape.)"""
         if self.pipeline is None:
             raise RuntimeError("call prepare() first")
-        pipe = self.pipeline
-        prefetch = pipe.prefetch if prefetch is None else prefetch
-        use_kernel = pipe.use_kernel if use_kernel is None else use_kernel
-        gather_buffers = pipe.gather_buffers if gather_buffers is None else gather_buffers
-        dedup = (pipe.dedup if dedup is None else dedup) and not pipe.reuse_prev_batch
-        store = pipe.caches.store
-        wblock = sample_blocks(
-            pipe.caches.dgraph,
-            self._seeds(seeds),
-            self.fanouts,
-            generator=torch.Generator(device=self.device).manual_seed(self.seed + 1),
-            dedup=dedup,
-            dedup_pad_id=store.pad_node_id() if dedup else None,
-        )
-        if dedup:
-            nu = int(wblock.dedup.num_unique)
-            bucket = pow2_bucket(nu, int(wblock.input_nodes.shape[0]))
-            gather_ids = wblock.dedup.unique_ids[:bucket]
-            inverse = wblock.dedup.inverse
-            row_block = ROW_BLOCK if use_kernel else None
-        else:
-            nu = None
-            gather_ids, inverse, row_block = wblock.input_nodes, None, None
-        prefetched = store.prefetch_misses(gather_ids, num_live=nu) if prefetch else None
-        wfeats, _ = store.gather(
-            gather_ids,
-            use_kernel=use_kernel,
-            gather_buffers=gather_buffers,
-            prefetched=prefetched,
-            row_block=row_block,
-        )
-        with torch.inference_mode():
-            block_until_ready(self.model(wfeats, inverse_index=inverse))
-
-    def warmup_refresh_growth(
-        self,
-        seeds: np.ndarray,
-        *,
-        use_kernel: bool | None = None,
-        gather_buffers: int | None = None,
-        dedup: bool | None = None,
-    ) -> None:
-        """A no-op, kept for the reference's API.
-
-        The reference runs one gather against the hot table's next growth
-        size so the program that size compiles is built off the serve
-        path.  Eager torch and the CUDA kernels compile nothing per table
-        size (a kernel takes the row count as an argument), so a growing
-        refresh has nothing to warm and no run calls this."""
-        del seeds, use_kernel, gather_buffers, dedup
-        if self.pipeline is None:
-            raise RuntimeError("call prepare() first")
+        if route is None:
+            route = EngineConfig().resolved(self.pipeline)
+        self._scratch_runtime(route, self.seed + 1).run_batch(seeds)
 
     # ------------------------------------------------------ adaptive depth
     def resolve_pipeline_depth(self, depth=None, *, seeds=None) -> int:
@@ -1043,23 +1003,16 @@ class GNNInferenceEngine:
         return self._auto_depth
 
     def _probe_stage_seconds(self, seeds: np.ndarray) -> tuple[float, float, float]:
-        """Fully synchronized per-stage seconds for one batch (best of 2)."""
+        """Fully synchronized (sample, feature, compute) seconds for one
+        batch on the plain route (table gathers, no dedup, no prefetch),
+        best of 2."""
         self.warmup(seeds)
-        pipe = self.pipeline
+        plain = EngineConfig(prefetch=False, use_kernel=False, dedup=False).resolved(self.pipeline)
         best = None
         for rep in range(2):
-            gen = torch.Generator(device=self.device).manual_seed(self.seed + 1000 + rep)
-            t0 = time.perf_counter()
-            block = sample_blocks(pipe.caches.dgraph, self._seeds(seeds), self.fanouts, generator=gen)
-            block_until_ready(block.frontiers[-1])
-            t1 = time.perf_counter()
-            feats, _ = pipe.caches.store.gather(block.input_nodes)
-            block_until_ready(feats)
-            t2 = time.perf_counter()
-            with torch.inference_mode():
-                block_until_ready(self.model(feats))
-            t3 = time.perf_counter()
-            lap = (t1 - t0, t2 - t1, t3 - t2)
+            clock = StageClock()
+            self._scratch_runtime(plain, self.seed + 1000 + rep).run_batch(seeds, clock)
+            lap = (clock.total("sample"), clock.total("feature"), clock.total("compute"))
             best = lap if best is None or sum(lap) < sum(best) else best
         return best
 
@@ -1138,18 +1091,14 @@ class GNNInferenceEngine:
         if draws is not None and len(draws) < len(batches):
             raise ValueError(f"draws cover {len(draws)} batches, the run has {len(batches)}")
         depth = self.resolve_pipeline_depth(requested, seeds=batches[0] if batches else None)
+        route = cfg.resolved(pipe, pipeline_depth=depth)
         if warmup and batches:
-            self.warmup(
-                batches[0],
-                prefetch=cfg.prefetch,
-                use_kernel=cfg.use_kernel,
-                gather_buffers=cfg.gather_buffers,
-                dedup=cfg.dedup,
-            )
+            self.warmup(batches[0], route)
         rt = StreamRuntime(
             pipe,
             self.model,
             fanouts=self.fanouts,
+            route=route,
             generator=(
                 None
                 if draws is not None
@@ -1157,10 +1106,6 @@ class GNNInferenceEngine:
             ),
             draws=draws,
             collect_outputs=collect_outputs,
-            prefetch=cfg.prefetch,
-            use_kernel=cfg.use_kernel,
-            gather_buffers=cfg.gather_buffers,
-            dedup=cfg.dedup,
             injector=injector,
             retry_policy=retry_policy,
             degraded_mode=degraded_mode,
@@ -1198,7 +1143,7 @@ class GNNInferenceEngine:
                     executor.depth = manager.suggested_depth
 
         executor = PipelinedExecutor(
-            stream_stages(lambda c: rt, prefetch=rt.prefetch),
+            stream_stages(lambda c: rt, prefetch=route.prefetch),
             depth=depth,
             clock=clock,
             on_retire=on_retire,
@@ -1206,12 +1151,6 @@ class GNNInferenceEngine:
         )
         executor.run(host_seeds(b) for b in batches)
         self.last_outputs = rt.outputs
-        resolved = cfg.resolved(pipe, pipeline_depth=depth).replace(
-            prefetch=rt.prefetch,
-            use_kernel=rt.use_kernel,
-            gather_buffers=rt.gather_buffers,
-            dedup=rt.dedup,
-        )
         report = InferenceReport(
             policy=pipe.name,
             num_batches=len(batches),
@@ -1225,16 +1164,16 @@ class GNNInferenceEngine:
             feat_lookups=rt.feat_lookups,
             feat_row_bytes=self.dataset.feature_nbytes_per_row(),
             pipeline_depth=depth,
-            prefetch=rt.prefetch,
+            prefetch=route.prefetch,
             prefetch_seconds=clock.total("prefetch"),
             prefetched_rows=rt.prefetched_rows,
-            dedup=rt.dedup,
+            dedup=route.dedup,
             unique_rows=rt.unique_rows,
             gathered_rows=rt.gathered_rows,
             fused_batches=rt.fused_batches,
             refresh_events=list(manager.events) if manager is not None else [],
             epoch_hits=rt.epoch_hit_rates() if manager is not None else None,
-            config=resolved,
+            config=route,
             device=str(self.device),
         )
         if metrics is not None:

@@ -484,15 +484,8 @@ class MultiStreamServer:
         self._started = False  # join/leave events fire only once serving began
         self._executor = None  # the live executor during run() (auto-depth hook)
         self._serve_t0 = None  # perf_counter at serve start (arrival clock origin)
-        eng_cfg = cfg.engine
-        self.prefetch = pipe.prefetch if eng_cfg.prefetch is None else eng_cfg.prefetch
-        self.use_kernel = pipe.use_kernel if eng_cfg.use_kernel is None else eng_cfg.use_kernel
-        self.gather_buffers = (
-            pipe.gather_buffers if eng_cfg.gather_buffers is None else eng_cfg.gather_buffers
-        )
-        self.dedup = (
-            pipe.dedup if eng_cfg.dedup is None else eng_cfg.dedup
-        ) and not pipe.reuse_prev_batch
+        # Every stream's gather route, resolved once against the pipeline.
+        self.route = cfg.engine.resolved(pipe)
         # A defaulted cap follows the window when refresh-aware auto depth
         # resizes it mid-run; an explicit cap is the caller's and stays.
         self._explicit_inflight_cap = cfg.max_inflight is not None
@@ -562,6 +555,7 @@ class MultiStreamServer:
             eng.pipeline,
             eng.model,
             fanouts=eng.fanouts,
+            route=self.route,
             generator=(
                 None
                 if draws is not None
@@ -569,10 +563,6 @@ class MultiStreamServer:
             ),
             draws=draws,
             collect_outputs=collect_outputs,
-            prefetch=self.prefetch,
-            use_kernel=self.use_kernel,
-            gather_buffers=self.gather_buffers,
-            dedup=self.dedup,
             injector=self.injector,
             retry_policy=self.retry_policy,
             degraded_mode=self.degraded_mode,
@@ -813,15 +803,9 @@ class MultiStreamServer:
         if warmup:
             seeds = self._warmup_seeds()
             if seeds is not None:
-                self.engine.warmup(
-                    seeds,
-                    prefetch=self.prefetch,
-                    use_kernel=self.use_kernel,
-                    gather_buffers=self.gather_buffers,
-                    dedup=self.dedup,
-                )
+                self.engine.warmup(seeds, self.route)
         executor = PipelinedExecutor(
-            stream_stages(lambda c: c.stream.runtime, prefetch=self.prefetch),
+            stream_stages(lambda c: c.stream.runtime, prefetch=self.route.prefetch),
             depth=self.depth,
             clock_for=lambda c: c.stream.clock,
             on_retire=self._on_retire,
@@ -871,14 +855,7 @@ class MultiStreamServer:
         resolved (and any refresh-driven resize), knobs defaulted from the
         prepared pipeline, the cap's follow-the-window default applied."""
         return self.config.replace(
-            max_inflight=self.max_inflight,
-            engine=self.config.engine.replace(
-                pipeline_depth=self.depth,
-                prefetch=self.prefetch,
-                use_kernel=self.use_kernel,
-                gather_buffers=self.gather_buffers,
-                dedup=self.dedup,
-            ),
+            max_inflight=self.max_inflight, engine=self.route.replace(pipeline_depth=self.depth)
         )
 
     def _serve_report(self, wall: float) -> ServeReport:
@@ -895,8 +872,8 @@ class MultiStreamServer:
             wall_seconds=wall,
             feat_row_bytes=self.engine.dataset.feature_nbytes_per_row(),
             streams=stream_reports,
-            prefetch=self.prefetch,
-            dedup=self.dedup,
+            prefetch=self.route.prefetch,
+            dedup=self.route.dedup,
             device=str(self.engine.device),
             refresh_events=(
                 list(self.refresh_manager.events) if self.refresh_manager is not None else []

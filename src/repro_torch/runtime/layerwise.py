@@ -347,7 +347,6 @@ def run_layerwise(
     chunk_size = min(int(config.chunk_size), n)
     depth = 2 if config.pipeline_depth == "auto" else int(config.pipeline_depth)
     use_kernel = bool(config.use_kernel)
-    gather_buffers = int(config.gather_buffers)
     prefetch = bool(config.prefetch)
     row_block = ROW_BLOCK if use_kernel else None
     dev = pipe.caches.store.hot_table.device
@@ -445,7 +444,6 @@ def run_layerwise(
             feats, hit = store.gather(
                 chunk_ids(spec),
                 use_kernel=use_kernel,
-                gather_buffers=gather_buffers,
                 prefetched=ctx.outputs.get("prefetch"),
                 row_block=row_block,
             )
@@ -508,7 +506,6 @@ def run_layerwise(
             feats, _ = store.gather(
                 chunk_ids(first),
                 use_kernel=use_kernel,
-                gather_buffers=gather_buffers,
                 row_block=row_block,
             )
             warm_out = layer_fn(first, feats)

@@ -45,8 +45,6 @@ from repro_torch.graph.shard import ShardedFeatureStore, make_shard_plan
 from repro_torch.launch.mesh import make_serving_mesh, serving_devices
 from repro_torch.runtime.gnn_engine import StreamRuntime, modeled_transfer_seconds
 from repro_torch.runtime.gnn_serve import MultiStreamServer, ServeReport
-from repro_torch.runtime.pipeline import BatchContext
-from repro_torch.utils.timing import block_until_ready
 
 __all__ = ["ShardedDualCache", "ShardedServer", "ShardedStreamRuntime"]
 
@@ -313,6 +311,7 @@ class ShardedServer(MultiStreamServer):
             eng.pipeline,
             eng.model,
             fanouts=eng.fanouts,
+            route=self.route,
             generator=(
                 None
                 if draws is not None
@@ -320,10 +319,6 @@ class ShardedServer(MultiStreamServer):
             ),
             draws=draws,
             collect_outputs=collect_outputs,
-            prefetch=self.prefetch,
-            use_kernel=self.use_kernel,
-            gather_buffers=self.gather_buffers,
-            dedup=self.dedup,
             injector=self.injector,
             retry_policy=self.retry_policy,
             degraded_mode=self.degraded_mode,
@@ -382,18 +377,14 @@ class ShardedServer(MultiStreamServer):
     # ---------------------------------------------------------------- run
     def _warmup_sharded(self, seeds: np.ndarray) -> None:
         """One batch through each replica's sampler, the per-shard gathers
-        and the forward, outside the timed loop, on a scratch runtime per
-        replica (stream state and draws untouched; no fault-plan calls)."""
+        and the forward, outside the timed loop: ``run_batch`` on a scratch
+        runtime per replica (stream state and draws untouched; no
+        fault-plan calls)."""
         for r in range(min(self.num_shards, len(self.sharded.adj_replicas))):
             rt = self._make_runtime(r, self.engine.seed, collect_outputs=False)
             rt.injector = None
             rt.retry_policy = None
-            ctx = BatchContext(-1 - r, self.engine._seeds(seeds))
-            ctx.outputs["sample"] = rt.sample(ctx)
-            if self.prefetch:
-                ctx.outputs["prefetch"] = rt.prefetch_stage(ctx)
-            ctx.outputs["feature"] = rt.feature(ctx)
-            block_until_ready(rt.compute(ctx))
+            rt.run_batch(seeds)
 
     def run(self, *, warmup: bool = True, raise_on_error: bool = True) -> ServeReport:
         if warmup:

@@ -12,6 +12,9 @@ Two kinds of engine:
     recovers a reference stream's slot draws (its runtime splits
     ``PRNGKey(seed + 1)`` once per batch), which the port's streams take
     through ``add_stream(draws=...)``.
+
+``spy_runtimes`` lists every ``StreamRuntime`` built while it is in place
+(the engine's run, its warm-up and probe runtimes, each server stream's).
 """
 
 import dataclasses
@@ -29,7 +32,7 @@ from repro_torch.core.policies import PreparedPipeline
 from repro_torch.core.presample import PresampleStats
 from repro_torch.graph.datasets import load_dataset
 from repro_torch.models.gnn.models import params_from_jax
-from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+from repro_torch.runtime.gnn_engine import GNNInferenceEngine, StreamRuntime
 
 FANOUTS = (3, 2)
 BATCH = 64
@@ -92,6 +95,20 @@ def ref_pair(small_dataset, policy="dci"):
         reuse_prev_batch=rpipe.reuse_prev_batch,
     )
     return ref, eng
+
+
+def spy_runtimes(monkeypatch) -> list:
+    """The list every ``StreamRuntime`` (sharded ones included) is appended
+    to as it is built, until ``monkeypatch`` undoes the patch."""
+    made = []
+    init = StreamRuntime.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(StreamRuntime, "__init__", spy)
+    return made
 
 
 def replay_draws(ref, seed, batches):

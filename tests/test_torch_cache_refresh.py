@@ -589,15 +589,6 @@ def test_refresh_rederives_auto_depth(dataset):
     assert_same_outputs(eng.last_outputs, other.last_outputs)
 
 
-def test_warmup_refresh_growth_touches_nothing(dataset):
-    eng = port_engine(dataset)
-    snap = _snapshot(eng.pipeline.caches)
-    eng.warmup_refresh_growth(dataset.test_idx[:BATCH], use_kernel=True, dedup=True)
-    _assert_unchanged(eng.pipeline.caches, snap)
-    dgl = port_engine(dataset, "dgl")
-    dgl.warmup_refresh_growth(dataset.test_idx[:BATCH])  # not refreshable: a no-op
-
-
 # ------------------------------------------------------ serving, against the JAX
 
 

@@ -124,20 +124,6 @@ def test_blocks_pad_a_hot_table_shorter_than_a_row_block(dtype):
     np.testing.assert_array_equal(db[5], db[3])
 
 
-@pytest.mark.parametrize("gather_buffers", [1, 2, 3, 4])
-@pytest.mark.parametrize("kind", ["db", "blocks"])
-def test_gather_buffer_counts_do_not_change_output(kind, gather_buffers):
-    port, ref = _both(kind, *_case(8, 64, 160, 33), gather_buffers=gather_buffers)
-    np.testing.assert_array_equal(port, ref)
-
-
-@pytest.mark.parametrize("kind", ["db", "blocks"])
-def test_gather_rejects_bad_buffers(kind):
-    z = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        PORT[kind](torch.zeros(1, 8), torch.zeros(2, 8), z, z, gather_buffers=0)
-
-
 def test_blocks_contiguous_runs_and_row_block_edges():
     """Sorted ids with id-ordered slots collapse to runs on both sources;
     row_block 1, 4 and 16 (larger than S) stay exact; row_block 0 raises."""

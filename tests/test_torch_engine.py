@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_serving import spy_runtimes
 
 from repro.core.config import EngineConfig as JaxEngineConfig
 from repro.graph.sampling import sample_blocks as jax_sample_blocks
@@ -164,6 +165,46 @@ def test_prefetch_matches_reference_engine(slice_pair, dedup):
     assert summary["prefetch"] and summary["prefetched_rows"] == rep.prefetched_rows
     assert rep.total_seconds == pytest.approx(
         rep.sample_seconds + rep.prefetch_seconds + rep.feature_seconds + rep.compute_seconds)
+
+
+@pytest.fixture(scope="module", params=["dci", "rain"])
+def warm_engine(request):
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=FANOUTS, batch_size=BATCH, device="cpu")
+    eng.prepare(request.param, total_cache_bytes=200_000, n_presample=2)
+    return eng
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+@pytest.mark.parametrize("dedup", [False, True])
+def test_warmup_changes_nothing_a_run_observes(warm_engine, dedup, prefetch, monkeypatch):
+    """Warm-up runs one batch through a scratch runtime's stages on the
+    run's route, drawing from a generator of its own: the run gives the
+    logits, counts and per-epoch counters of a run without it, and leaves
+    the run's generator where a run alone leaves it."""
+    eng = warm_engine
+    cfg = EngineConfig(use_kernel=True, dedup=dedup, prefetch=prefetch, pipeline_depth=2)
+    made = spy_runtimes(monkeypatch)
+    runs = []
+    for warmup in (False, True):
+        del made[:]
+        rep = eng.run(config=cfg, max_batches=BATCHES, warmup=warmup, collect_outputs=True)
+        assert len(made) == 1 + warmup
+        runs.append((rep, eng.last_outputs, made[-1]))
+    scratch = made[0]
+    (cold, cold_out, cold_rt), (warm, warm_out, warm_rt) = runs
+    assert scratch.route == warm_rt.route == warm.config and scratch.outputs is None
+    assert scratch.generator is not warm_rt.generator
+    assert scratch.generator.initial_seed() == warm_rt.generator.initial_seed() == eng.seed + 1
+    assert not torch.equal(scratch.generator.get_state(),
+                           torch.Generator().manual_seed(eng.seed + 1).get_state())
+    assert torch.equal(warm_rt.generator.get_state(), cold_rt.generator.get_state())
+    for key in ("adj_hits", "adj_lookups", "feat_hits", "feat_lookups", "unique_rows",
+                "gathered_rows", "prefetched_rows", "fused_batches", "epoch_hits", "config"):
+        assert getattr(warm, key) == getattr(cold, key), key
+    assert warm_rt.epoch_counters == cold_rt.epoch_counters
+    for a, b in zip(warm_out, cold_out, strict=True):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_generator_run_is_deterministic_and_prepare_runs_on_cpu(small_dataset):
@@ -321,7 +362,8 @@ def test_interleaved_streams_read_their_own_draws():
                 for i, slots in enumerate(block.edge_slots)
             ])
     runtimes = [
-        StreamRuntime(eng.pipeline, eng.model, fanouts=FANOUTS, draws=draws[sid],
+        StreamRuntime(eng.pipeline, eng.model, fanouts=FANOUTS,
+                      route=EngineConfig().resolved(eng.pipeline), draws=draws[sid],
                       collect_outputs=True)
         for sid in range(2)
     ]

@@ -298,8 +298,6 @@ def test_wrappers_refuse_what_they_cannot_read(cuda):
     with pytest.raises(ValueError):
         tk.cached_gather(hot, host, idx.cpu(), pos.cpu())  # indices off the card
     with pytest.raises(ValueError):
-        tk.cached_gather(hot, host, idx, pos, gather_buffers=0)
-    with pytest.raises(ValueError):
         tk.cached_gather_blocks(hot, host, idx, pos, row_block=0)
     with pytest.raises(ValueError, match="use_kernel"):
         cached_feature_gather(hot, host, idx, pos)  # the plain version stays on the CPU

@@ -27,6 +27,7 @@ from _torch_serving import (
     ref_pair,
     replay_draws,
     solo_engine,
+    spy_runtimes,
 )
 
 from repro.core.config import EngineConfig as JaxEngineConfig
@@ -36,7 +37,9 @@ from repro.runtime.gnn_serve import make_stream_batches as jax_make_stream_batch
 from repro_torch.core.config import EngineConfig, ServeConfig
 from repro_torch.kernels.cached_gather import kernel as tk
 from repro_torch.launch import infer_gnn
+from repro_torch.core.policies import POLICIES
 from repro_torch.runtime.gnn_serve import MultiStreamServer, make_stream_batches
+from repro_torch.runtime.sharded_serve import ShardedServer
 
 # One intra-op thread: these tests share the machine with other test workers.
 torch.set_num_threads(1)
@@ -109,6 +112,48 @@ def test_server_matches_reference_server(pair, small_dataset, depth):
         assert_close_outputs(st.runtime.outputs, jst.runtime.outputs)
     if policy == "dci":
         assert 0 < rep.feat_hits < rep.feat_lookups
+
+
+# ------------------------------------------------------------------ the route
+
+
+@pytest.fixture(scope="module", params=sorted(POLICIES))
+def routed_engine(request, dataset):
+    """An engine whose pipeline's route defaults differ from
+    ``EngineConfig``'s: the kernel route with dedup."""
+    return port_engine(dataset, request.param, config=EngineConfig(use_kernel=True, dedup=True))
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+def test_one_route_everywhere(routed_engine, dataset, explicit, monkeypatch):
+    """The gather route is ``EngineConfig.resolved(pipe)`` wherever it is
+    read: the engine report's config, the run's runtime and its warm-up's,
+    every stream runtime (and warm-up runtime) of the plain and the sharded
+    server, and the served config.  Unset fields take the pipeline's
+    defaults, and RAIN's reuse turns dedup off."""
+    eng = routed_engine
+    pipe = eng.pipeline
+    cfg = EngineConfig(prefetch=True, use_kernel=False, dedup=True) if explicit else EngineConfig()
+    want = cfg.resolved(pipe)
+    assert (want.prefetch, want.use_kernel) == (explicit, not explicit)
+    assert want.dedup == (pipe.name != "rain")
+    made = spy_runtimes(monkeypatch)
+    rep = eng.run(config=cfg.replace(pipeline_depth=1), max_batches=1)
+    assert rep.config == cfg.resolved(pipe, pipeline_depth=1)
+    assert (rep.prefetch, rep.dedup) == (want.prefetch, want.dedup)
+    assert len(made) == 2 and all(rt.route == rep.config for rt in made)  # warm-up, run
+    for server in (
+        MultiStreamServer(eng, config=ServeConfig(engine=cfg)),
+        ShardedServer(eng, config=ServeConfig(engine=cfg), num_shards=2),
+    ):
+        del made[:]
+        for q in _queues(dataset, n=2, batches=1):
+            server.add_stream(q)
+        served = server.run()
+        assert server.route == want and made and all(rt.route == want for rt in made)
+        assert served.config.engine == server._resolved_config().engine
+        assert served.config.engine == cfg.resolved(pipe, pipeline_depth=server.depth)
+        assert (served.prefetch, served.dedup) == (want.prefetch, want.dedup)
 
 
 # --------------------------------------------------------------- equivalence
