@@ -9,9 +9,9 @@ Imports nothing of JAX and nothing of the JAX package.  Phases, none of
 whose errors is caught:
 
 1. device: the card's name and power limit;
-2. build: compile the four sources of ``src/repro_torch/csrc/``
+2. build: compile the five sources of ``src/repro_torch/csrc/``
    (``cached_gather.cu``, ``seg_agg.cu``, ``flash_attention.cu``,
-   ``gat_attend.cu``) with ``nvcc``, one process each, all started together, print the build
+   ``gat_attend.cu``, ``sample_layer.cu``) with ``nvcc``, one process each, all started together, print the build
    time and each kernel's registers, static shared memory and spills
    from ``-Xptxas -v``, and kernel #3's ring (its dynamic shared memory
    per CTA and CTAs per SM at the F = 100 and F = 602 row widths);
@@ -89,7 +89,17 @@ whose errors is caught:
    counters of kernels #1 and #2 (set to 0 just before each route and
    read just after) must be > 0; every route's layer 0 must launch
    ``seg_agg_indexed`` once per batch and the report count each batch
-   (``fused_batches``);
+   (``fused_batches``), and every route's sampling must launch
+   ``sample_layer`` once a layer a batch (``sample_layer.launches``, set
+   to 0 just before each route: 3 layers x (8 batches + a warm-up));
+   8b. the sampler's kernel at the offline cells' last layer (4096 seeds
+   at fan-outs 15,10,5: 270,336 seeds x 15 draws) on phase 3's prepared
+   ogbn-products graph and on Reddit's stand-in
+   (``bench/configs/gcn-reddit.json``, no adjacency cache), bit for bit
+   against ``ref.py`` on the same uniforms, timed (device and host time
+   a call) beside the plain path with the concatenation it replaced and
+   beside its bytes bound at HBM3's rate; then a whole batch's
+   ``sample_blocks`` with dedup through the kernel and through ``ref.py``;
 9. the CLI, as subprocesses: ``--use-kernel --prefetch``, ``--policy
    rain``, ``--mode layerwise --scale 0.01``, and serving at the default
    ``--scale 0.004``: ``--streams 4 --batches-per-stream 2``, ``--arrival
@@ -302,6 +312,20 @@ GAT_CONFIG = ROOT / "bench" / "configs" / "gat-products.json"
 GAT_BATCH = 4096
 GAT_TABLE_ROWS = 2_449_029  # layer 0 reads ogbn-products' rows through the inverse map
 GAT_TOL = 1e-5
+# The sampler's kernel at the offline cells' last layer (batch 4096 at
+# FANOUTS: 270,336 seeds x 15 draws): on phase 3's prepared ogbn-products
+# graph (its adjacency cache active) and on Reddit's stand-in
+# (bench/configs/gcn-reddit.json, no adjacency cache), timed over
+# SAMPLER_REPS calls.
+SAMPLER_BATCH = 4096
+SAMPLER_REPS = 20
+REDDIT_CONFIG = ROOT / "bench" / "configs" / "gcn-reddit.json"
+# Bytes the sampler's kernel must move: per seed its id, node range, cached
+# length and cache offset; per draw u, one neighbour id read, and the
+# neighbour, hit flag and slot written.
+SAMPLER_SEED_BYTES = 4 + 8 + 4 + 4
+SAMPLER_DRAW_BYTES = 8 + 4 + 4 + 1 + 4
+KERNEL_SOURCES = ("cached_gather", "seg_agg", "flash_attention", "gat_attend", "sample_layer")
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
 # Phase 15, LM serving (src/repro/configs/gemma_2b.py at full size, bf16):
@@ -392,6 +416,7 @@ REPLACES = {
     "seg_agg_indexed": "none: fuses src/repro/models/gnn/models.py:79 with seg_agg",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
     "gat_attend": "none: JAX has no GAT",
+    "sample_layer": "none: src/repro/graph/sampling.py samples in jnp ops, fused by XLA",
 }
 SOURCES = {
     "cached_gather": "src/repro_torch/csrc/cached_gather.cu",
@@ -401,6 +426,7 @@ SOURCES = {
     "seg_agg_indexed": "src/repro_torch/csrc/seg_agg.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gat_attend": "src/repro_torch/csrc/gat_attend.cu",
+    "sample_layer": "src/repro_torch/csrc/sample_layer.cu",
 }
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s and
 # device-memory bytes/s, by a substring of the name nvidia-smi reports.
@@ -481,16 +507,17 @@ def build_phase() -> dict:
     from repro_torch.kernels.cached_gather import kernel as cg
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gat_attend import kernel as ga
+    from repro_torch.kernels.sample_layer import kernel as sl
     from repro_torch.kernels.seg_agg import kernel as sa
     from repro_torch.runtime.gnn_engine import HBM3_BW, PCIE5_BW
 
     phase("2. build")
     t0 = time.perf_counter()
-    names = ("cached_gather", "seg_agg", "flash_attention", "gat_attend")
+    names = KERNEL_SOURCES
     # One nvcc per source, all started together; each call raises on failure.
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build_library, names)))
-    for mod in (cg, sa, fa, ga):
+    for mod in (cg, sa, fa, ga, sl):
         mod.load_library()
     build_s = time.perf_counter() - t0
     log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v, per kernel:")
@@ -1244,6 +1271,7 @@ def main_path_phase(eng) -> dict:
 
     from repro_torch.core.config import EngineConfig
     from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.kernels.sample_layer import kernel as sl
     from repro_torch.kernels.seg_agg import kernel as sa
 
     phase(f"8. main path: GraphSAGE 3x128, fanouts {FANOUTS}, batch {BATCH}, "
@@ -1264,13 +1292,14 @@ def main_path_phase(eng) -> dict:
     counters = (tk.cached_gather, tk.cached_gather_blocks, tk.cached_gather_select)
     torch.cuda.reset_peak_memory_stats()
     reports, outputs, route_launches, hits = {}, {}, {}, {}
-    indexed_total = 0
+    indexed_total = sampled_total = 0
     for label, cfg in routes.items():
         # Counts set to 0 just before each route and read just after it;
         # the run is MAIN_BATCHES batches plus one warmup batch.
         for fn in counters:
             fn.launches = 0
         sa.seg_agg_indexed.launches = 0
+        sl.sample_layer.launches = 0
         t0 = time.perf_counter()
         rep = eng.run(config=cfg, max_batches=MAIN_BATCHES, collect_outputs=True)
         wall = time.perf_counter() - t0
@@ -1281,6 +1310,11 @@ def main_path_phase(eng) -> dict:
                                  f"fused_batches {rep.fused_batches}, for {MAIN_BATCHES} "
                                  f"batches and a warmup")
         indexed_total += indexed
+        sampled = sl.sample_layer.launches
+        if sampled != len(FANOUTS) * (MAIN_BATCHES + 1):
+            raise AssertionError(f"{label}: sample_layer launched {sampled} times for "
+                                 f"{len(FANOUTS)} layers x ({MAIN_BATCHES} batches + a warmup)")
+        sampled_total += sampled
         out = np.stack(eng.last_outputs)
         if out.shape != (MAIN_BATCHES, BATCH, eng.dataset.spec.num_classes) or not np.isfinite(
             out
@@ -1314,12 +1348,116 @@ def main_path_phase(eng) -> dict:
             raise AssertionError(f"{label}: prefetch {reports[label]['prefetch']}, "
                                  f"prefetched_rows {reports[label].get('prefetched_rows')}")
     log(f"  logits and hit counts identical across {sorted(outputs)}; seg_agg_indexed once "
-        f"per batch on every route")
+        f"per batch on every route; sample_layer.launches {len(FANOUTS) * (MAIN_BATCHES + 1)} "
+        f"a route ({len(FANOUTS)} layers x ({MAIN_BATCHES} batches + a warmup)), "
+        f"{sampled_total} in all")
     if launches["cached_gather"] == 0 or launches["cached_gather_blocks"] == 0:
         raise AssertionError(f"a main-path kernel was never launched: {launches}")
     return {"reports": reports, "launches": launches, "route_launches": route_launches,
             "launches_per_batch": per_batch, "max_memory_allocated": peak,
-            "seg_agg_indexed_launches": indexed_total}
+            "seg_agg_indexed_launches": indexed_total, "sample_layer_launches": sampled_total}
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean milliseconds of the host's time to issue one call, over
+    ``reps`` calls after one warmup (the card drains them afterwards)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued / reps * 1e3
+
+
+def sampler_phase(eng, hbm: float) -> dict:
+    """Phase 8b: the sampler's kernel at the offline cells' last layer
+    against ref.py (bit for bit) and timed beside the plain path and the
+    concatenation it replaced and beside its bytes bound; then a whole
+    batch's sample_blocks both ways."""
+    import numpy as np
+    import torch
+
+    from bench.data import make_graph
+    from repro_torch.graph import sampling
+    from repro_torch.graph.csc import CSCGraph
+    from repro_torch.kernels.sample_layer import kernel as sl
+    from repro_torch.kernels.sample_layer.ref import sample_layer_ref
+
+    phase(f"8b. sample_layer at the last layer of batch {SAMPLER_BATCH}, fanouts {FANOUTS}: "
+          f"ogbn-products (phase 3's graph) and Reddit's stand-in")
+    cuda = torch.device("cuda")
+    reddit = make_graph(json.loads(REDDIT_CONFIG.read_text())["dataset"], SEED, device=cuda)
+    graphs = {
+        "products": (eng.pipeline.caches.dgraph, eng.dataset.test_idx),
+        "reddit": (sampling.device_graph(CSCGraph(col_ptr=reddit.col_ptr,
+                                                  row_index=reddit.row_index), device=cuda),
+                   reddit.test_idx),
+    }
+    rows = []
+    for label, (g, test_idx) in graphs.items():
+        gen = torch.Generator(device=cuda).manual_seed(SEED)
+        batch = torch.from_numpy(np.asarray(test_idx[:SAMPLER_BATCH], np.int32)).to(cuda)
+        seeds = sampling.sample_blocks(g, batch, FANOUTS[1:], generator=gen).input_nodes
+        fanout = FANOUTS[0]
+        u = torch.rand((seeds.shape[0], fanout), generator=gen, dtype=torch.float64, device=cuda)
+        buf = torch.empty(seeds.shape[0] * (1 + fanout), dtype=torch.int32, device=cuda)
+        buf[: seeds.shape[0]] = seeds
+        head, tail = buf[: seeds.shape[0]], buf[seeds.shape[0]:]
+        count = torch.zeros((), dtype=torch.int64, device=cuda)
+        plain_nbr = torch.empty_like(tail)
+        plain_count = torch.zeros_like(count)
+        hit, slots = sl.sample_layer(g, head, u, tail, count)
+        plain_hit, plain_slots = sample_layer_ref(g, seeds, u, plain_nbr, plain_count)
+        torch.cuda.synchronize()
+        if not (torch.equal(tail, plain_nbr) and torch.equal(hit, plain_hit)
+                and torch.equal(slots, plain_slots) and int(count) == int(plain_count)):
+            raise AssertionError(f"{label}: sample_layer differs from ref.py on the same u")
+
+        def kernel():
+            sl.sample_layer(g, head, u, tail, count)
+
+        def plain():  # the plain path and the concatenation the kernel replaced
+            sample_layer_ref(g, seeds, u, plain_nbr, plain_count)
+            torch.cat([seeds, plain_nbr])
+
+        draws = seeds.shape[0] * fanout
+        nbytes = seeds.shape[0] * SAMPLER_SEED_BYTES + draws * SAMPLER_DRAW_BYTES
+        row = {
+            "label": label, "seeds": int(seeds.shape[0]), "draws": draws,
+            "hit_share": int(plain_count) / draws,
+            "ms": device_ms(kernel, SAMPLER_REPS), "plain_ms": device_ms(plain, SAMPLER_REPS),
+            "host_ms": host_ms(kernel, SAMPLER_REPS),
+            "plain_host_ms": host_ms(plain, SAMPLER_REPS),
+            "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "max_abs_err": 0,
+        }
+
+        def block(layer_fn):
+            def run():
+                sampling.sample_layer = layer_fn
+                try:
+                    sampling.sample_blocks(g, batch, FANOUTS, generator=gen, dedup=True)
+                finally:
+                    sampling.sample_layer = sl.sample_layer
+            return run
+
+        for key, fn in (("batch", block(sl.sample_layer)), ("plain_batch", block(sample_layer_ref))):
+            row[f"{key}_ms"] = device_ms(fn, SAMPLER_REPS)
+            row[f"{key}_host_ms"] = host_ms(fn, SAMPLER_REPS)
+        rows.append(row)
+        log(f"  {label}: {row['seeds']} seeds x {fanout}, hit share {row['hit_share']:.4f}; "
+            f"kernel {row['ms']:.4f} ms (host {row['host_ms']:.4f}), plain + cat "
+            f"{row['plain_ms']:.4f} ms (host {row['plain_host_ms']:.4f}), bound "
+            f"{row['bound_ms']:.4f} ms ({nbytes} B); a batch's sample_blocks with dedup: "
+            f"kernel {row['batch_ms']:.4f} ms (host {row['batch_host_ms']:.4f}), plain "
+            f"{row['plain_batch_ms']:.4f} ms (host {row['plain_batch_host_ms']:.4f})")
+        del buf, head, tail, u, seeds, hit, slots, plain_hit, plain_slots, plain_nbr
+    del graphs, reddit
+    torch.cuda.empty_cache()
+    return {"layers": rows}
 
 
 def gat_phase(ds, hbm: float) -> dict:
@@ -3856,8 +3994,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    if not all((SRC / "repro_torch" / "csrc" / f"{n}.cu").is_file()
-               for n in ("cached_gather", "seg_agg", "flash_attention", "gat_attend")):
+    if not all((SRC / "repro_torch" / "csrc" / f"{n}.cu").is_file() for n in KERNEL_SOURCES):
         print(f"chip_smoke: no repro_torch sources under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
@@ -3878,6 +4015,7 @@ def main() -> int:
     ops_launches = ops_path_phase()
     torch.cuda.empty_cache()
     main_path = main_path_phase(eng)
+    sampler = sampler_phase(eng, peaks[1])
     gat = gat_phase(ds, peaks[1])
     torch.cuda.empty_cache()
     cli = cli_phase()
@@ -3937,6 +4075,13 @@ def main() -> int:
            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"]}
           for r in gat["layers"]),
+        # One row per offline cell's last sampled layer; launches: phase 8's
+        # routes.  No library call computes the same function.
+        *({"name": "sample_layer", "route": "cuda", "source": SOURCES["sample_layer"],
+           "replaces": REPLACES["sample_layer"], "case": r["label"],
+           "launches": main_path["sample_layer_launches"], "max_abs_err": r["max_abs_err"],
+           "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": "bytes", "library_ms": None} for r in sampler["layers"]),
         # library_ms: flex_attention with the same softcap and mask
         # (scaled_dot_product_attention without softcap is in chip_smoke.json).
         # launches: the ops path's, phases 15-17's LM serving runs, phase
@@ -3955,7 +4100,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
-        "ops_launches": ops_launches, "main_path": main_path, "gat": gat, "baselines": baselines,
+        "ops_launches": ops_launches, "main_path": main_path, "sampler": sampler, "gat": gat,
+        "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
         "lm": lm, "ssm": ssm, "encdec": encdec, "training": training, "dryrun": dry,
         "cli": cli, "path_launches": path_launches,

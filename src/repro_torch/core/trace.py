@@ -116,8 +116,8 @@ class _Span:
     def __enter__(self) -> "_Span":
         tr = self._tracer
         if self.tid is None:  # the lane of the innermost open span
-            self.tid = tr._open[-1] if tr._open else tr.lane("main")
-        tr._open.append(self.tid)
+            self.tid = tr._open[-1].tid if tr._open else tr.lane("main")
+        tr._open.append(self)
         if _torch_profiler._is_profiler_enabled:
             self._ann = _torch_profiler.record_function(self.name)
             self._ann.__enter__()
@@ -160,7 +160,7 @@ class Tracer:
         self._epoch = time.perf_counter()
         self._events: list[dict[str, Any]] = []
         self._lanes: dict[str, int] = {}
-        self._open: list[int] = []  # lanes of the spans still open, innermost last
+        self._open: list[_Span] = []  # the spans still open, innermost last
         self._next_flow = itertools.count(1)
         self._meta(0, "process_name", {"name": process_name})
 
@@ -198,6 +198,13 @@ class Tracer:
         ``lane``; without one, on the lane of the innermost span still
         open when it enters (``main`` when none is)."""
         return _Span(self, name, None if lane is None else self.lane(lane), args)
+
+    def annotate(self, **args) -> None:
+        """Add ``args`` to the innermost open span (into a dict of its own:
+        spans may share the one they were opened with)."""
+        if self._open:
+            span = self._open[-1]
+            span.args = {**(span.args or {}), **args}
 
     def complete(
         self,
@@ -331,6 +338,9 @@ class NullTracer:
 
     def span(self, name: str, *, lane: str | None = None, args: dict | None = None) -> _NullSpan:
         return _NULL_SPAN
+
+    def annotate(self, **args) -> None:
+        pass
 
     def complete(self, name: str, *, lane: str, ts_us: float, dur_us: float, args=None) -> None:
         pass

@@ -12,9 +12,12 @@ Sampling is with replacement.
 
 The RNG seam: JAX's threefry cannot be reproduced in torch, so the draw of
 ``r`` is separate from its resolution.  :func:`sample_neighbors` draws
-``r`` from a ``torch.Generator`` unless the caller passes it, then resolves
-it exactly as the reference does; :func:`sample_blocks` takes either a
-generator or one ``r`` tensor per layer.
+float64 uniforms ``u`` from a ``torch.Generator`` (one ``torch.rand`` call
+a layer) unless the caller passes ``r``, then resolves them exactly as the
+reference does; :func:`sample_blocks` takes either a generator or one
+``r`` tensor per layer.  A layer is resolved by
+:func:`~repro_torch.kernels.sample_layer.kernel.sample_layer`: one CUDA
+launch on a card, the plain torch version (its ``ref.py``) on the CPU.
 
 Out-of-range slots: the edge slot of a zero-degree node is ``col_ptr[v]``,
 which equals ``E`` for a trailing isolated node.  JAX clamps such a gather
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csc import AdjCache, CSCGraph
+from repro_torch.kernels.sample_layer.kernel import sample_layer
 
 __all__ = [
     "DeviceGraph",
@@ -41,7 +45,6 @@ __all__ = [
     "count_visits",
     "dedup_frontier",
     "device_graph",
-    "draw_slots",
     "pow2_bucket",
     "sample_neighbors",
     "sample_blocks",
@@ -154,19 +157,29 @@ def pow2_bucket(n: int, cap: int | None = None) -> int:
     return bucket if cap is None else min(bucket, int(cap))
 
 
-def draw_slots(
-    g: DeviceGraph, seeds: torch.Tensor, fanout: int, generator: torch.Generator
+def _layer_draws(
+    g: DeviceGraph,
+    seeds: torch.Tensor,
+    fanout: int,
+    generator: torch.Generator | None,
+    r: torch.Tensor | None,
+    full_neighborhood: bool,
 ) -> torch.Tensor:
-    """Uniform slot draws ``r ~ U[0, max(deg, 1))``, ``int32[S, fanout]``.
-
-    Drawn in float64 from ``generator`` (which must live on ``g``'s
-    device) and clamped below ``deg`` so rounding can never reach it."""
-    s = seeds.to(torch.int64)
-    deg = (g.col_ptr[s + 1] - g.col_ptr[s]).clamp_min(1).to(torch.int64)[:, None]
-    u = torch.rand(
+    """One layer's draws for :func:`sample_layer`: the slots ``r`` (int32)
+    when given or enumerated, else ``u ~ U[0, 1)`` in float64 from
+    ``generator`` (on ``g``'s device), one ``torch.rand`` call a layer."""
+    if full_neighborhood:
+        s64 = seeds.to(torch.int64)
+        deg = g.col_ptr[s64 + 1] - g.col_ptr[s64]
+        slots = torch.arange(fanout, dtype=torch.int32, device=g.device)
+        return slots[None, :] % deg.clamp_min(1)[:, None]
+    if r is not None:
+        return r.to(device=g.device, dtype=torch.int32)
+    if generator is None:
+        raise ValueError("sampling needs a generator or the slot draws r")
+    return torch.rand(
         (seeds.shape[0], fanout), generator=generator, dtype=torch.float64, device=g.device
     )
-    return torch.minimum((u * deg).to(torch.int64), deg - 1).to(torch.int32)
 
 
 def sample_neighbors(
@@ -185,39 +198,19 @@ def sample_neighbors(
     visit counting during pre-sampling (unclamped; see the module note).
 
     ``r`` gives the slot draws directly; otherwise they are drawn from
-    ``generator``.  ``full_neighborhood=True`` replaces the draw with the
-    enumeration ``r = arange(fanout) % max(deg, 1)``: a seed whose degree
-    equals ``fanout`` takes every neighbor exactly once, so the sampled
-    aggregate IS the full-neighborhood sum (the bridge of the layer-wise
-    equivalence tests); higher degrees truncate to the first ``fanout``
-    slots, lower ones wrap."""
-    seeds = seeds.to(torch.int32)
-    s64 = seeds.to(torch.int64)
-    start = g.col_ptr[s64]  # [S]
-    deg = g.col_ptr[s64 + 1] - start  # [S]
-    if full_neighborhood:
-        slots = torch.arange(fanout, dtype=torch.int32, device=g.device)
-        r = slots[None, :] % deg.clamp_min(1)[:, None]
-    elif r is None:
-        if generator is None:
-            raise ValueError("sample_neighbors needs a generator or the slot draws r")
-        r = draw_slots(g, seeds, fanout, generator)
-    r = r.to(device=g.device, dtype=torch.int32)
-    edge_slots = start[:, None] + r
-    num_edges = g.row_index.shape[0]
-    host_nbr = g.row_index[edge_slots.to(torch.int64).clamp_(0, max(num_edges - 1, 0))]
-
-    clen = g.cached_len[s64]  # [S]
-    hit = r < clen[:, None]
-    cache_idx = g.cache_ptr[s64][:, None] + torch.minimum(r, (clen - 1).clamp_min(0)[:, None])
-    cache_idx = cache_idx.to(torch.int64).clamp_max_(g.cache_row_index.shape[0] - 1)
-    cache_nbr = g.cache_row_index[cache_idx]
-    nbr = torch.where(hit, cache_nbr, host_nbr)
-
-    isolated = (deg == 0)[:, None]
-    nbr = torch.where(isolated, seeds[:, None], nbr)
-    hit = hit | isolated
-    return nbr, hit, edge_slots
+    ``generator``: ``r = min(trunc(u * max(deg, 1)), max(deg, 1) - 1)`` for
+    float64 uniforms ``u``.  ``full_neighborhood=True`` replaces the draw
+    with the enumeration ``r = arange(fanout) % max(deg, 1)``: a seed whose
+    degree equals ``fanout`` takes every neighbor exactly once, so the
+    sampled aggregate IS the full-neighborhood sum (the bridge of the
+    layer-wise equivalence tests); higher degrees truncate to the first
+    ``fanout`` slots, lower ones wrap."""
+    seeds = seeds.to(device=g.device, dtype=torch.int32)
+    draws = _layer_draws(g, seeds, fanout, generator, r, full_neighborhood)
+    nbr = torch.empty(seeds.shape[0] * fanout, dtype=torch.int32, device=g.device)
+    hits = torch.zeros((), dtype=torch.int64, device=g.device)
+    hit, edge_slots = sample_layer(g, seeds, draws, nbr, hits)
+    return nbr.view(seeds.shape[0], fanout), hit, edge_slots
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,12 +223,14 @@ class BlockSample:
     reshape.  ``input_nodes`` is the deepest frontier — the rows the
     feature loader must fetch.  ``dedup`` is the sorted-unique view of the
     deepest frontier (``sample_blocks(dedup=True)``), else ``None``.
+    Every frontier is a prefix view of one buffer, the deepest frontier's.
     """
 
     frontiers: tuple[torch.Tensor, ...]
     neighbor_hits: tuple[torch.Tensor, ...]  # per layer, [S_l, fanout_l]
     edge_slots: tuple[torch.Tensor, ...]
     fanouts: tuple[int, ...]
+    hit_count: torch.Tensor  # int64[], the hits of every layer
     dedup: DedupFrontier | None = None
 
     @property
@@ -244,9 +239,7 @@ class BlockSample:
 
     def adj_hit_stats(self) -> tuple[torch.Tensor, int]:
         """``(hits, lookups)``: a device scalar and a host int."""
-        hits = sum(h.sum() for h in self.neighbor_hits)
-        total = sum(h.numel() for h in self.neighbor_hits)
-        return hits, total
+        return self.hit_count, sum(h.numel() for h in self.neighbor_hits)
 
 
 def sample_blocks(
@@ -271,33 +264,42 @@ def sample_blocks(
     sampling itself is identical with the flag on or off.
     ``full_neighborhood=True`` enumerates every layer's slots instead of
     drawing them (:func:`sample_neighbors`) and needs no draws."""
-    seeds = seeds.to(device=g.device, dtype=torch.int32)
     rev = tuple(reversed(fanouts))
     if draws is not None and len(draws) != len(rev):
         raise ValueError(f"need one draw tensor per layer ({len(rev)}), got {len(draws)}")
-    frontiers = [seeds]
+    sizes = [seeds.shape[0]]
+    for fanout in rev:
+        sizes.append(sizes[-1] * (1 + fanout))
+    # The deepest frontier, allocated once: layer i reads its prefix
+    # buf[:sizes[i]] as seeds and writes its neighbours right behind it.
+    buf = torch.empty(sizes[-1], dtype=torch.int32, device=g.device)
+    buf[: sizes[0]].copy_(seeds)
+    hit_count = torch.zeros((), dtype=torch.int64, device=g.device)
+    frontiers = []
     hits_all = []
     slots_all = []
-    frontier = seeds
     for i, fanout in enumerate(rev):
-        nbr, hit, slots = sample_neighbors(
+        frontier = buf[: sizes[i]]
+        layer_draws = _layer_draws(
             g,
             frontier,
             fanout,
-            generator=generator,
-            r=None if draws is None else draws[i],
-            full_neighborhood=full_neighborhood,
+            generator,
+            None if draws is None else draws[i],
+            full_neighborhood,
         )
-        frontier = torch.cat([frontier, nbr.reshape(-1)])
+        hit, slots = sample_layer(g, frontier, layer_draws, buf[sizes[i] : sizes[i + 1]], hit_count)
         frontiers.append(frontier)
         hits_all.append(hit)
         slots_all.append(slots)
+    frontiers.append(buf)
     return BlockSample(
         frontiers=tuple(frontiers),
         neighbor_hits=tuple(hits_all),
         edge_slots=tuple(slots_all),
         fanouts=tuple(fanouts),
-        dedup=dedup_frontier(frontier, dedup_pad_id) if dedup else None,
+        hit_count=hit_count,
+        dedup=dedup_frontier(buf, dedup_pad_id) if dedup else None,
     )
 
 

@@ -17,6 +17,10 @@ live in ``src/repro_torch/csrc/`` and are built at first use
   gat_attend/       GAT's per-head softmax-weighted sums of a sampled layer's
                     input rows, scored from the heads' folded score vectors
                     (no reference counterpart, so no ``ops.py``)
+  sample_layer/     one layer of DCI's neighbour sampling: slot draws, the
+                    adjacency cache's hit test, the winning list's read and
+                    the frontier's tail in one launch (the reference samples
+                    in jnp ops, so no ``ops.py``)
 """
 
 from repro_torch.kernels.cached_gather.ops import cached_feature_gather

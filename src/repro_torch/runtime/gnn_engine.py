@@ -83,6 +83,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.sampling import pow2_bucket, sample_blocks
 from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+from repro_torch.kernels.sample_layer.kernel import sample_layer
 from repro_torch.models.gnn.models import GNN, init_params
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
 from repro_torch.utils.timing import StageClock
@@ -460,7 +461,8 @@ class StreamRuntime:
             out = self._sample(ctx, graph, seeds, draws)
             done = side.record_event()
         block, bh, _ = out
-        for t in (*block.frontiers, *block.neighbor_hits, *block.edge_slots, bh):
+        # Every frontier is a view of the deepest one's buffer.
+        for t in (block.input_nodes, *block.neighbor_hits, *block.edge_slots, bh):
             t.record_stream(main)  # read on the compute stream: not reused before
         if block.dedup is not None:
             for t in (block.dedup.unique_ids, block.dedup.inverse, block.dedup.num_unique):
@@ -470,6 +472,7 @@ class StreamRuntime:
         return out
 
     def _sample(self, ctx, graph, seeds, draws):
+        launches = sample_layer.launches
         block = sample_blocks(
             graph,
             seeds,
@@ -481,6 +484,8 @@ class StreamRuntime:
             # slots are feature-cache hits, never phantom miss rows.
             dedup_pad_id=self.pipe.caches.store.pad_node_id() if self.dedup else None,
         )
+        # The layers this batch sampled through the kernel (none on the CPU).
+        self.tracer.annotate(kernel_layers=sample_layer.launches - launches)
         bh, bt = block.adj_hit_stats()
         if self.dedup:
             # The one forced sync of the dedup path (reading num_unique)

@@ -905,6 +905,209 @@ def test_gat_engine_routes_agree_and_count_the_fused_batches_on_the_card(cuda):
         np.testing.assert_array_equal(out, outs[0])
 
 
+# The sampler's per-layer kernel (sample_layer) at the offline cells' last
+# layer (batch 4096 at fan-outs 15,10,5: 270,336 seeds x 15 draws) over
+# graphs of ogbn-products' and Reddit's node count and average degree,
+# held to ref.py on the same u bit for bit: neighbours, hit flags, edge
+# slots and the hit total.  Each graph has isolated nodes (a trailing one
+# whose slot is E) and nodes with no cached prefix and with the whole list
+# cached; the seeds take some of each.
+SAMPLE_GRAPHS = {"products": (2_449_029, 25), "reddit": (232_965, 50)}
+
+
+def _sample_graph(cuda, n, avg_deg, seed=0):
+    from repro_torch.graph.sampling import DeviceGraph
+
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    deg = torch.randint(0, 2 * avg_deg, (n,), generator=gen, device=cuda, dtype=torch.int32)
+    isolated = torch.randint(0, n, (64,), generator=gen, device=cuda)
+    deg[isolated] = 0
+    deg[-1] = 0  # the trailing isolated node: its slot is E
+    col_ptr = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    col_ptr[1:] = torch.cumsum(deg, 0)
+    num_edges = int(col_ptr[-1])
+    row = torch.randint(0, n, (num_edges,), generator=gen, device=cuda, dtype=torch.int32)
+    pick = torch.rand(n, generator=gen, device=cuda)
+    part = (torch.rand(n, generator=gen, device=cuda) * (deg + 1).float()).to(torch.int32)
+    clen = torch.where(pick < 0.3, 0, torch.where(pick < 0.6, deg, part.clamp_max(deg)))
+    cache_ptr = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    cache_ptr[1:] = torch.cumsum(clen, 0)
+    cached = max(int(cache_ptr[-1]), 1)
+    cache_row = torch.randint(0, n, (cached,), generator=gen, device=cuda, dtype=torch.int32)
+    return DeviceGraph(col_ptr=col_ptr, row_index=row, cache_ptr=cache_ptr,
+                       cache_row_index=cache_row, cached_len=clen.to(torch.int32))
+
+
+def _sample_seeds(cuda, g, s, seed=1):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    n = g.cached_len.shape[0]
+    seeds = torch.randint(0, n, (s,), generator=gen, device=cuda, dtype=torch.int32)
+    deg = g.col_ptr[1:] - g.col_ptr[:-1]
+    kinds = (torch.nonzero(deg == 0).flatten()[:50],
+             torch.nonzero((deg > 0) & (g.cached_len == 0)).flatten()[:50],
+             torch.nonzero((deg > 0) & (g.cached_len == deg)).flatten()[:50])
+    special = torch.cat([*kinds, torch.tensor([n - 1], device=cuda)]).to(torch.int32)
+    seeds[: special.shape[0]] = special
+    return seeds
+
+
+def _both_layers(g, seeds, draws):
+    """The kernel and ref.py on the same inputs: (nbr, hit, slots, count) each."""
+    from repro_torch.kernels.sample_layer import kernel as sk
+    from repro_torch.kernels.sample_layer.ref import sample_layer_ref
+
+    out = []
+    for fn in (sk.sample_layer, sample_layer_ref):
+        nbr = torch.full((draws.numel(),), -7, dtype=torch.int32, device=seeds.device)
+        count = torch.full((), 5, dtype=torch.int64, device=seeds.device)  # added to
+        hit, slots = fn(g, seeds, draws, nbr, count)
+        out.append((nbr, hit, slots, count))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("mode", ["uniforms", "slots"])
+@pytest.mark.parametrize("graph", sorted(SAMPLE_GRAPHS))
+def test_sample_layer_matches_ref_bit_for_bit(cuda, graph, mode):
+    from repro_torch.kernels.sample_layer import kernel as sk
+    from repro_torch.kernels.sample_layer.ref import slots_from_uniforms
+
+    g = _sample_graph(cuda, *SAMPLE_GRAPHS[graph])
+    seeds = _sample_seeds(cuda, g, 270_336)
+    u = torch.rand((seeds.shape[0], 15), generator=torch.Generator(device=cuda).manual_seed(2),
+                   dtype=torch.float64, device=cuda)
+    s64 = seeds.long()
+    deg = g.col_ptr[s64 + 1] - g.col_ptr[s64]
+    draws = u if mode == "uniforms" else slots_from_uniforms(deg, u)
+    before = sk.sample_layer.launches
+    (nbr, hit, slots, count), (rn, rh, rs, rc) = _both_layers(g, seeds, draws)
+    assert sk.sample_layer.launches == before + 1
+    assert torch.equal(nbr, rn) and torch.equal(hit, rh) and torch.equal(slots, rs)
+    assert int(count) == int(rc) == 5 + int(hit.sum())
+    isolated = deg == 0
+    assert isolated.any() and hit[isolated].all()
+    assert torch.equal(nbr.view(-1, 15)[isolated], seeds[isolated, None].expand(-1, 15))
+    assert (slots[seeds == g.cached_len.shape[0] - 1] == g.row_index.shape[0]).all()
+    clen = g.cached_len[s64]
+    assert not hit[(clen == 0) & ~isolated].any()
+    assert hit[(clen == deg) & ~isolated].all()
+
+
+def test_sample_layer_small_cases_and_refusals_on_the_card(cuda):
+    from repro_torch.graph.sampling import DeviceGraph
+    from repro_torch.kernels.sample_layer import kernel as sk
+
+    # Nodes 1 and 4 isolated (4 trailing: slot E); 0 wholly cached, 2 not at all.
+    g = DeviceGraph(*(torch.tensor(a, dtype=torch.int32, device=cuda) for a in (
+        [0, 2, 2, 5, 6, 6], [1, 3, 0, 2, 4, 0], [0, 2, 2, 2, 3, 3], [1, 3, 4], [2, 0, 0, 1, 0])))
+    seeds = torch.tensor([0, 1, 2, 3, 4, 4, 1, 2], dtype=torch.int32, device=cuda)
+    for fanout in (1, 3, 16):
+        u = torch.rand((8, fanout), dtype=torch.float64, device=cuda)
+        for draws in (u, torch.arange(fanout, dtype=torch.int32, device=cuda).expand(8, -1)
+                      % torch.tensor([2, 1, 3, 1, 1, 1, 1, 3], device=cuda)[:, None].int()):
+            (nbr, hit, slots, count), (rn, rh, rs, rc) = _both_layers(g, seeds, draws)
+            assert torch.equal(nbr, rn) and torch.equal(hit, rh) and torch.equal(slots, rs)
+            assert int(count) == int(rc)
+            assert (slots[4:6] == 6).all() and hit[[1, 4, 5, 6]].all() and not hit[[2, 7]].any()
+    before = sk.sample_layer.launches
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    hit, slots = sk.sample_layer(g, empty, torch.empty((0, 3), dtype=torch.float64, device=cuda),
+                                 empty, count)
+    assert hit.shape == slots.shape == (0, 3) and sk.sample_layer.launches == before
+    nbr = torch.empty(8 * 3, dtype=torch.int32, device=cuda)
+    u = torch.rand((8, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="draws on cpu"):
+        sk.sample_layer(g, seeds, u.cpu(), nbr, count)
+    with pytest.raises(ValueError, match="graph.col_ptr on cpu"):
+        sk.sample_layer(dataclasses.replace(g, col_ptr=g.col_ptr.cpu()), seeds, u, nbr, count)
+    with pytest.raises(ValueError, match="float64 uniforms or int32 slots"):
+        sk.sample_layer(g, seeds, u.float(), nbr, count)
+    with pytest.raises(ValueError, match="hit_count must be an int64 scalar"):
+        sk.sample_layer(g, seeds, u, nbr, count.int())
+
+
+@pytest.mark.parametrize("mode", ["generator", "draws", "full_neighborhood"])
+def test_sample_blocks_on_the_card_equal_the_plain_path(cuda, monkeypatch, mode):
+    """sample_blocks through the kernel and through ref.py (the sampler of
+    before, as the CPU runs it) on the card, three layers at fan-outs
+    15,10,5 from 4096 seeds: the same frontiers, hits, slots, hit total
+    and dedup, and the generator left in the same state."""
+    from repro_torch.graph import sampling
+    from repro_torch.kernels.sample_layer import kernel as sk
+    from repro_torch.kernels.sample_layer.ref import sample_layer_ref
+
+    g = _sample_graph(cuda, *SAMPLE_GRAPHS["reddit"], seed=3)
+    seeds = _sample_seeds(cuda, g, 4096, seed=4)
+    fanouts = (15, 10, 5)
+    blocks, states = [], []
+    draws = None
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(sampling, "sample_layer", sample_layer_ref)
+        gen = torch.Generator(device=cuda).manual_seed(21)
+        kw = dict(generator=gen)
+        if mode == "full_neighborhood":
+            kw = dict(full_neighborhood=True)
+        elif mode == "draws":
+            if draws is None:  # another generator's slots, recovered, replayed
+                drawn = sampling.sample_blocks(
+                    g, seeds, fanouts, generator=torch.Generator(device=cuda).manual_seed(22))
+                draws = [s - g.col_ptr[f.long()][:, None]
+                         for f, s in zip(drawn.frontiers, drawn.edge_slots)]
+            kw = dict(draws=draws)
+        before = sk.sample_layer.launches
+        blocks.append(sampling.sample_blocks(g, seeds, fanouts, dedup=True, dedup_pad_id=0, **kw))
+        torch.cuda.synchronize()
+        assert sk.sample_layer.launches - before == (0 if plain else 3)
+        states.append(gen.get_state())
+    got, want = blocks
+    assert len(got.frontiers) == 4 and got.input_nodes.shape == (4096 * 16 * 11 * 6,)
+    for name in ("frontiers", "neighbor_hits", "edge_slots"):
+        for a, b in zip(getattr(got, name), getattr(want, name), strict=True):
+            assert torch.equal(a, b), name
+    assert all(f.data_ptr() == got.input_nodes.data_ptr() for f in got.frontiers)
+    assert int(got.hit_count) == int(want.hit_count) == sum(int(h.sum())
+                                                            for h in got.neighbor_hits)
+    assert torch.equal(got.dedup.unique_ids, want.dedup.unique_ids)
+    assert torch.equal(got.dedup.inverse, want.dedup.inverse)
+    assert torch.equal(states[0], states[1])
+
+
+def test_engine_batches_equal_with_the_kernel_and_the_plain_sampler_on_the_card(
+        cuda, monkeypatch):
+    """Four engine batches on the cell's route (kernel, dedup, depth 2) with
+    the sampler's kernel and with ref.py in its place: the same logits and
+    counts; the kernel launches once a layer a batch and every ``sample``
+    span says so in ``kernel_layers``."""
+    from repro_torch.core.trace import Tracer
+    from repro_torch.graph import sampling
+    from repro_torch.kernels.sample_layer import kernel as sk
+    from repro_torch.kernels.sample_layer.ref import sample_layer_ref
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(4, 3), batch_size=128, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    cfg = EngineConfig(use_kernel=True, dedup=True, pipeline_depth=2)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(sampling, "sample_layer", sample_layer_ref)
+        tracer = Tracer()
+        before = sk.sample_layer.launches
+        rep = eng.run(config=cfg, max_batches=4, collect_outputs=True, tracer=tracer,
+                      warmup=False)
+        layers = [e["args"]["kernel_layers"] for e in tracer.events
+                  if e["ph"] == "X" and e["name"] == "sample"]
+        assert layers == [0 if plain else 2] * 4
+        assert sk.sample_layer.launches - before == (0 if plain else 2 * 4)
+        runs.append(((rep.adj_hits, rep.adj_lookups, rep.feat_hits, rep.feat_lookups,
+                      rep.unique_rows, rep.gathered_rows), np.stack(eng.last_outputs)))
+    (counts, out), (plain_counts, plain_out) = runs
+    assert counts == plain_counts and 0 < counts[0] < counts[1]
+    np.testing.assert_array_equal(out, plain_out)
+
+
 def _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=0):
     gen = torch.Generator().manual_seed(seed)
     q = torch.randn((b, hq, sq, d), generator=gen).to(dtype).to(cuda)
