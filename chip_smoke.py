@@ -255,6 +255,23 @@ whose errors is caught:
    and read just after must be 3 a batch (warm-up included), each batch
    counted in ``fused_batches``, the logits of both routes identical.
 
+21. The Graph Transformer (run after phase 20), at ``gt-products.offline4096``'s
+   shapes (``bench/configs/gt-products.json``, batch 4096 at fan-outs
+   15,10,5): ``dot_attend`` at its three layers — layer 0 through the
+   inverse map, 270,336 destinations x 15 neighbour positions of F = 100 from
+   a table of ogbn-products' 2,449,029 rows by uniform ids; layers 1 and 2 in
+   place, 24,576 x 10 and 4,096 x 5 of F = 512, 4 heads each — the queries
+   folded from random maps as the model folds them, held to ``ref.py`` in
+   float64 on the same inputs (the widest gap within ``GAT_TOL`` of the
+   largest output), layer 0's dense form the same bits as its indexed form;
+   each timed beside ``ref.py``, the paper's order in torch ops (project every
+   neighbour's row to a key and a value, score, softmax, sum: the library
+   time) and the bound of ``bench/models/graph_transformer.py``'s
+   ``attend_bytes`` at HBM3's rate.  Then the Graph Transformer through
+   ``GNNInferenceEngine`` on the cell's route (kernel, dedup, depth 2) and
+   without dedup, as phase 20 runs GAT: 3 ``dot_attend`` launches a batch,
+   each batch a fused one, the logits of both routes identical.
+
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
 Bounds use the published peaks of the card ``nvidia-smi`` names
@@ -312,6 +329,11 @@ GAT_CONFIG = ROOT / "bench" / "configs" / "gat-products.json"
 GAT_BATCH = 4096
 GAT_TABLE_ROWS = 2_449_029  # layer 0 reads ogbn-products' rows through the inverse map
 GAT_TOL = 1e-5
+# Phase 21, the Graph Transformer at gt-products.offline4096 (batch 4096 at
+# FANOUTS): dot_attend held to ref.py as gat_attend is, within GAT_TOL (float32
+# scores of up to 512 terms and the online softmax's rescaling), and the
+# engine's batches on the cell's route.
+GT_CONFIG = ROOT / "bench" / "configs" / "gt-products.json"
 # The sampler's kernel at the offline cells' last layer (batch 4096 at
 # FANOUTS: 270,336 seeds x 15 draws): on phase 3's prepared ogbn-products
 # graph (its adjacency cache active) and on Reddit's stand-in
@@ -325,7 +347,8 @@ REDDIT_CONFIG = ROOT / "bench" / "configs" / "gcn-reddit.json"
 # neighbour, hit flag and slot written.
 SAMPLER_SEED_BYTES = 4 + 8 + 4 + 4
 SAMPLER_DRAW_BYTES = 8 + 4 + 4 + 1 + 4
-KERNEL_SOURCES = ("cached_gather", "seg_agg", "flash_attention", "gat_attend", "sample_layer")
+KERNEL_SOURCES = ("cached_gather", "seg_agg", "flash_attention", "gat_attend", "sample_layer",
+                  "dot_attend")
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
 # Phase 15, LM serving (src/repro/configs/gemma_2b.py at full size, bf16):
@@ -416,6 +439,7 @@ REPLACES = {
     "seg_agg_indexed": "none: fuses src/repro/models/gnn/models.py:79 with seg_agg",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
     "gat_attend": "none: JAX has no GAT",
+    "dot_attend": "none: JAX has no Graph Transformer",
     "sample_layer": "none: src/repro/graph/sampling.py samples in jnp ops, fused by XLA",
 }
 SOURCES = {
@@ -426,6 +450,7 @@ SOURCES = {
     "seg_agg_indexed": "src/repro_torch/csrc/seg_agg.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gat_attend": "src/repro_torch/csrc/gat_attend.cu",
+    "dot_attend": "src/repro_torch/csrc/dot_attend.cu",
     "sample_layer": "src/repro_torch/csrc/sample_layer.cu",
 }
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s and
@@ -505,6 +530,7 @@ def build_phase() -> dict:
 
     from repro_torch.kernels._build import build_library
     from repro_torch.kernels.cached_gather import kernel as cg
+    from repro_torch.kernels.dot_attend import kernel as da
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gat_attend import kernel as ga
     from repro_torch.kernels.sample_layer import kernel as sl
@@ -517,7 +543,7 @@ def build_phase() -> dict:
     # One nvcc per source, all started together; each call raises on failure.
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build_library, names)))
-    for mod in (cg, sa, fa, ga, sl):
+    for mod in (cg, sa, fa, ga, sl, da):
         mod.load_library()
     build_s = time.perf_counter() - t0
     log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v, per kernel:")
@@ -1467,10 +1493,8 @@ def gat_phase(ds, hbm: float) -> dict:
     import torch
 
     from bench import models as bench_models
-    from repro_torch.core.config import EngineConfig
     from repro_torch.kernels.gat_attend import kernel as ga
     from repro_torch.kernels.gat_attend.ref import gat_attend_ref
-    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
 
     config = json.loads(GAT_CONFIG.read_text())
     bench_gat = bench_models.load("gat")
@@ -1552,7 +1576,123 @@ def gat_phase(ds, hbm: float) -> dict:
         torch.cuda.empty_cache()
         layers.append(row)
 
-    eng = GNNInferenceEngine(ds, model="gat", fanouts=FANOUTS, batch_size=GAT_BATCH, seed=SEED,
+    return {"layers": layers, **attention_engine_runs(ds, "gat", ga.gat_attend, config, widths[-1])}
+
+
+def gt_phase(ds, hbm: float) -> dict:
+    """Phase 21: dot_attend at the Graph Transformer cell's three layers against
+    ref.py and timed, then the Graph Transformer through the engine with its
+    launches counted."""
+    import numpy as np
+    import torch
+
+    from bench import models as bench_models
+    from repro_torch.kernels.dot_attend import kernel as da
+    from repro_torch.kernels.dot_attend.ref import dot_attend_ref
+    from repro_torch.models.gnn import models as gm
+
+    config = json.loads(GT_CONFIG.read_text())
+    bench_gt = bench_models.load("graph_transformer")
+    widths = bench_gt.dims(config)
+    phase(f"21. Graph Transformer: dot_attend at gt-products.offline4096's layers, then the "
+          f"engine (batch {GAT_BATCH}, fanouts {FANOUTS})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    layers = []
+    for layer, fo in enumerate(FANOUTS):  # layer 0 reads the deepest frontier
+        heads, f = config["heads"][layer], widths[layer]
+        width = widths[-1] if layer == len(FANOUTS) - 1 else config["head_dim"]
+        n = GAT_BATCH * int(np.prod([1 + k for k in FANOUTS[layer + 1:]]))
+        positions = n * (1 + fo)
+        indexed = layer == 0
+        if indexed:
+            x = torch.randn((GAT_TABLE_ROWS, f), generator=gen, device="cuda")
+            idx = torch.randint(0, GAT_TABLE_ROWS, (positions,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            distinct = int(torch.unique(idx).numel())
+            self_h = x[idx[:n].long()]
+        else:
+            x, idx, distinct = torch.randn((positions, f), generator=gen, device="cuda"), None, positions
+            self_h = x[:n]
+        p = {}
+        for name in "qkv":
+            p[f"w_{name}"] = torch.randn((f, heads * width), generator=gen, device="cuda") / f ** 0.5
+            p[f"b_{name}"] = torch.randn((heads, width), generator=gen, device="cuda") / f ** 0.5
+        u = gm._gt_query(p, self_h)
+        kw = dict(num_dst=n, fanout=fo)
+        label = f"layer {layer}"
+
+        got = da.dot_attend(x, idx, u, **kw)
+        exact = dot_attend_ref(x.double(), idx, u.double(), **kw)
+        err = float((got.double() - exact).abs().max())
+        gap = err / float(exact.abs().max())
+        del exact
+        if not gap <= GAT_TOL:
+            raise AssertionError(f"dot_attend ({label}): {gap:.3g} of the largest output from "
+                                 f"ref.py in float64, over {GAT_TOL}")
+        idx64 = None if idx is None else idx.long()
+
+        def paper_order():
+            """Project every neighbour's row to a key and a value, score, softmax, sum."""
+            nbr = x[n:] if idx64 is None else x[idx64[n:]]
+            q = (self_h @ p["w_q"]).view(n, 1, heads, width) + p["b_q"]
+            k = (nbr @ p["w_k"]).view(n, fo, heads, width) + p["b_k"]
+            alpha = torch.softmax((q * k).sum(-1) / width ** 0.5, 1)
+            del k
+            v = (nbr @ p["w_v"]).view(n, fo, heads, width) + p["b_v"]
+            return (alpha[..., None] * v).sum(1)
+
+        mine = torch.einsum("nhf,fhd->nhd", got, p["w_v"].view(f, heads, width)) + p["b_v"]
+        lib = paper_order()
+        library_gap = float((lib - mine).abs().max() / lib.abs().max())
+        del lib, mine
+        nbytes = bench_gt.attend_bytes(f, widths[layer + 1], config=config, layer=layer, dst=n,
+                                       positions=positions, distinct_rows=distinct,
+                                       indexed=indexed)
+        row = dict(label=label, shape=[n, fo, f], heads=heads, indexed=indexed,
+                   distinct_rows=distinct, max_abs_err=err, max_rel_gap=gap,
+                   library_rel_gap=library_gap,
+                   ms=cuda_ms(lambda: da.dot_attend(x, idx, u, **kw), reps=10),
+                   plain_ms=cuda_ms(lambda: dot_attend_ref(x, idx, u, **kw), reps=3),
+                   library_ms=cuda_ms(paper_order, reps=3),
+                   bytes=nbytes, bound_ms=1e3 * nbytes / hbm)
+        form = "through the index" if indexed else "in place"
+        log(f"  {label} [{n} x {fo}, F {f}, {heads} heads] {form}: kernel {row['ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({distinct} distinct rows, {nbytes} B)  ref.py "
+            f"{row['plain_ms']:.4f} ms  paper order {row['library_ms']:.4f} ms; gap to ref.py in "
+            f"float64 {gap:.3g} of the largest output, paper order to the kernel's heads "
+            f"{library_gap:.3g}")
+        if indexed:  # the dense form of the same positions: the same bits
+            dense = x[idx64]
+            del x, idx, idx64
+            if not torch.equal(da.dot_attend(dense, None, u, **kw), got):
+                raise AssertionError(f"dot_attend ({label}): dense form differs from indexed form")
+            row["dense_ms"] = cuda_ms(lambda: da.dot_attend(dense, None, u, **kw), reps=10)
+            log(f"  {label} dense form (no index): kernel {row['dense_ms']:.4f} ms, the same bits")
+            del dense
+        else:
+            del x
+        del got, u, p, self_h
+        torch.cuda.empty_cache()
+        layers.append(row)
+
+    return {"layers": layers,
+            **attention_engine_runs(ds, "graph_transformer", da.dot_attend, config, widths[-1])}
+
+
+def attention_engine_runs(ds, model: str, kernel, config: dict, classes: int) -> dict:
+    """Phases 20-21's engine part: ``model`` through ``GNNInferenceEngine`` on
+    the cell's route (kernel, dedup, depth 2) and without dedup, MAIN_BATCHES
+    batches of GAT_BATCH each; ``kernel`` (its ``launches`` set to 0 just
+    before each run and read just after) must launch once a layer a batch,
+    warm-up included, every batch must count as fused, and both routes must
+    give the same logits."""
+    import numpy as np
+
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+
+    name = kernel.__name__
+    eng = GNNInferenceEngine(ds, model=model, fanouts=FANOUTS, batch_size=GAT_BATCH, seed=SEED,
                              device="cuda")
     t0 = time.perf_counter()
     eng.prepare(config["policy"], config=EngineConfig(), total_cache_bytes=CACHE_BYTES)
@@ -1560,28 +1700,27 @@ def gat_phase(ds, hbm: float) -> dict:
     runs, outputs, launches = {}, {}, 0
     for label, dedup in (("kernel_dedup_d2", True), ("kernel_d2", False)):
         cfg = EngineConfig(use_kernel=True, dedup=dedup, pipeline_depth=2)
-        # Counted from 0 just before the run; MAIN_BATCHES batches and a warm-up.
-        ga.gat_attend.launches = 0
+        kernel.launches = 0
         rep = eng.run(config=cfg, max_batches=MAIN_BATCHES, collect_outputs=True)
-        count = ga.gat_attend.launches
+        count = kernel.launches
         if count != len(FANOUTS) * (MAIN_BATCHES + 1) or rep.fused_batches != MAIN_BATCHES:
-            raise AssertionError(f"GAT {label}: gat_attend launched {count} times, fused_batches "
+            raise AssertionError(f"{model} {label}: {name} launched {count} times, fused_batches "
                                  f"{rep.fused_batches}, for {MAIN_BATCHES} batches and a warm-up")
         out = np.stack(eng.last_outputs)
-        if out.shape != (MAIN_BATCHES, GAT_BATCH, widths[-1]) or not np.isfinite(out).all():
-            raise AssertionError(f"GAT {label}: logits of shape {out.shape}, "
+        if out.shape != (MAIN_BATCHES, GAT_BATCH, classes) or not np.isfinite(out).all():
+            raise AssertionError(f"{model} {label}: logits of shape {out.shape}, "
                                  f"finite={np.isfinite(out).all()}")
         launches += count
         outputs[label] = out
-        runs[label] = dict(rep.summary(), gat_attend_launches=count)
-        log(f"  engine {label}: {MAIN_BATCHES} batches, gat_attend {count} launches "
+        runs[label] = dict(rep.summary(), **{f"{name}_launches": count})
+        log(f"  engine {label}: {MAIN_BATCHES} batches, {name} {count} launches "
             f"({count / (MAIN_BATCHES + 1):.0f} a batch), fused_batches {rep.fused_batches}, "
             f"compute {rep.compute_seconds:.4f} s, total {rep.total_seconds:.4f} s")
     if not np.array_equal(outputs["kernel_dedup_d2"], outputs["kernel_d2"]):
-        raise AssertionError("GAT: logits with dedup differ from those without")
+        raise AssertionError(f"{model}: logits with dedup differ from those without")
     log(f"  logits identical with and without dedup; prepare {prepare_s:.1f} s")
     del eng
-    return {"layers": layers, "runs": runs, "launches": launches, "prepare_s": prepare_s}
+    return {"runs": runs, "launches": launches, "prepare_s": prepare_s}
 
 
 def counted_run(run, counters) -> tuple[object, dict]:
@@ -4018,6 +4157,8 @@ def main() -> int:
     sampler = sampler_phase(eng, peaks[1])
     gat = gat_phase(ds, peaks[1])
     torch.cuda.empty_cache()
+    gt = gt_phase(ds, peaks[1])
+    torch.cuda.empty_cache()
     cli = cli_phase()
     baselines = baselines_phase(ds, eng)
     layerwise = layerwise_phase(ds, eng)
@@ -4075,6 +4216,12 @@ def main() -> int:
            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"]}
           for r in gat["layers"]),
+        # One row per layer of the Graph Transformer cell; launches: phase 21's engine runs.
+        *({"name": "dot_attend", "route": "cuda", "source": SOURCES["dot_attend"],
+           "replaces": REPLACES["dot_attend"], "case": r["label"], "launches": gt["launches"],
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"]}
+          for r in gt["layers"]),
         # One row per offline cell's last sampled layer; launches: phase 8's
         # routes.  No library call computes the same function.
         *({"name": "sample_layer", "route": "cuda", "source": SOURCES["sample_layer"],
@@ -4101,6 +4248,7 @@ def main() -> int:
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "sampler": sampler, "gat": gat,
+        "gt": gt,
         "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
         "lm": lm, "ssm": ssm, "encdec": encdec, "training": training, "dryrun": dry,

@@ -1,7 +1,11 @@
 """GraphSAGE and GCN models (paper Table III: 3 layers, hidden 128, FC apply),
-and GAT (Veličković et al., ICLR 2018, arXiv:1710.10903) in its inductive
+GAT (Veličković et al., ICLR 2018, arXiv:1710.10903) in its inductive
 model (§3.3): two layers of 4 heads of 256 concatenated with ELU, a learned
-skip across the middle layer, 6 heads averaged at the output.
+skip across the middle layer, 6 heads averaged at the output; and the Graph
+Transformer (Shi et al., UniMP, IJCAI 2021, arXiv:2009.03509; PyG's
+``TransformerConv``) at its ogbn-products settings: two layers of 4 heads of
+128 concatenated, each with its gated skip, LayerNorm and ReLU, 4 heads
+averaged at the output.
 
 ``init_params`` builds the per-layer parameter dicts from a
 ``torch.Generator`` (``[in, out]`` weights, as in the reference);
@@ -22,6 +26,25 @@ F]``), then one batched matmul per layer for the heads' maps.  Projecting
 first would map every position's row: at batch 4096 and fan-outs 15,10,5
 about 983 GFLOP a batch against 174, and a ``[positions, H*D]`` tensor at
 layer 0 (4.3 M x 1024).
+
+A Graph Transformer layer runs in the same order.  Each destination's query
+``q_i^k = W_q^k h_i + b_q^k`` is folded through the head's key map, ``u_i^k
+= W_k^k q_i^k / sqrt(D)`` (the scale rides in the query map's product), so
+a neighbour's score ``q_i^k . k_j^k / sqrt(D)`` is ``u_i^k . h_j`` plus a
+term the same for every neighbour of ``i``, which the softmax cancels: the
+key bias never enters.  The per-head softmax-weighted sums of the
+neighbours' INPUT rows
+(:func:`~repro_torch.kernels.dot_attend.kernel.dot_attend`, ``[rows, H,
+F]``; the destination's own row takes no part) then go through one batched
+matmul for the heads' value maps, whose bias enters once because the
+weights sum to 1.  The skip ``r_i = W_r h_i + b_r``, the gate ``beta_i =
+sigmoid(w_g . [h_i'; r_i; h_i' - r_i])``, the mix ``beta_i r_i + (1 -
+beta_i) h_i'`` and, on a hidden layer, LayerNorm follow
+(:func:`~repro_torch.models.gnn.layers.gt_apply`,
+:func:`~repro_torch.models.gnn.layers.gt_gate`).  Projecting keys and values
+first would map every neighbour position's row twice: about 800 GFLOP a
+batch against 175 at batch 4096 and fan-outs 15,10,5, and a ``[positions,
+H*D]`` key and value tensor at layer 0 (4.1 M x 512 each).
 """
 
 from __future__ import annotations
@@ -33,12 +56,15 @@ import torch
 from torch import nn
 
 from repro_torch.core.trace import NULL_TRACER
+from repro_torch.kernels.dot_attend.kernel import dot_attend
 from repro_torch.kernels.gat_attend.kernel import gat_attend
 from repro_torch.kernels.seg_agg.kernel import seg_agg_indexed
 from repro_torch.models.gnn.layers import (
     gat_apply,
     gcn_apply,
     gcn_layer,
+    gt_apply,
+    gt_gate,
     sage_apply,
     sage_layer,
 )
@@ -48,6 +74,8 @@ __all__ = [
     "GAT_HIDDEN_HEADS",
     "GAT_OUTPUT_HEADS",
     "GNN",
+    "GT_HEADS",
+    "GT_HEAD_DIM",
     "MODELS",
     "NEGATIVE_SLOPE",
     "forward",
@@ -57,7 +85,7 @@ __all__ = [
     "params_from_jax",
 ]
 
-MODELS = ("graphsage", "gcn", "gat")
+MODELS = ("graphsage", "gcn", "gat", "graph_transformer")
 
 # GAT's inductive model (§3.3): heads of each hidden layer and of the
 # output layer, the hidden heads' width, and LeakyReLU's slope in the scores.
@@ -65,6 +93,11 @@ GAT_HIDDEN_HEADS = 4
 GAT_OUTPUT_HEADS = 6
 GAT_HEAD_DIM = 256
 NEGATIVE_SLOPE = 0.2
+# The Graph Transformer at UniMP's ogbn-products settings: heads of every
+# layer and the hidden heads' width (``hidden_size`` 128 read per head, the
+# heads concatenated, as PyG's ``TransformerConv(128, heads=4)``).
+GT_HEADS = 4
+GT_HEAD_DIM = 128
 
 
 def _full_fp32() -> None:
@@ -92,11 +125,25 @@ def init_params(
     the score halves ``a_src`` and ``a_dst`` ``[H, D]`` (normal, scaled by
     ``1/sqrt(D)``), the bias ``b`` (``[H*D]``, or ``[num_classes]`` at the
     output) and, on each middle layer (1 to ``n_layers - 2``), the skip's
-    map ``w_res [in, H*D]`` and bias ``b_res``, drawn in that order."""
+    map ``w_res [in, H*D]`` and bias ``b_res``, drawn in that order.
+
+    The Graph Transformer takes UniMP's widths, whatever ``hidden``:
+    ``GT_HEADS`` heads of ``GT_HEAD_DIM`` concatenated in each hidden layer,
+    ``GT_HEADS`` heads of ``num_classes`` averaged at the output; a layer
+    holds the query, key and value maps ``w_q``, ``w_k``, ``w_v`` ``[in,
+    H*D]`` each followed by its bias ``b_q``, ``b_k``, ``b_v`` ``[H, D]``,
+    the skip's ``w_r [in, out]`` and ``b_r [out]``, the gate's ``w_g
+    [3*out]`` and, on a hidden layer, LayerNorm's ``ln_w`` and ``ln_b``
+    ``[out]``, drawn in that order: maps and biases normal scaled by
+    ``1/sqrt(fan-in)``, ``ln_w`` ``1 + 0.1 * normal``, ``ln_b`` ``0.1 *
+    normal``, none of them zero (``bench/models/graph_transformer.py``
+    draws the same)."""
     if model not in MODELS:
         raise ValueError(f"unknown GNN model {model!r}")
     if model == "gat":
         return _init_gat(generator, in_dim, num_classes, n_layers, device)
+    if model == "graph_transformer":
+        return _init_gt(generator, in_dim, num_classes, n_layers, device)
     dims = [in_dim] + [hidden] * (n_layers - 1) + [num_classes]
     params = []
     for i in range(n_layers):
@@ -141,9 +188,35 @@ def _init_gat(generator, in_dim, num_classes, n_layers, device):
     return params
 
 
+def _init_gt(generator, in_dim, num_classes, n_layers, device):
+    def normal(shape, fan_in=1):
+        w = torch.randn(shape, generator=generator, device=generator.device)
+        return (w / float(np.sqrt(fan_in))).to(device)
+
+    params, d_in = [], in_dim
+    for i in range(n_layers):
+        last = i == n_layers - 1
+        width = num_classes if last else GT_HEAD_DIM
+        d_out = width if last else GT_HEADS * width
+        layer = {}
+        for name in "qkv":
+            layer[f"w_{name}"] = normal((d_in, GT_HEADS * width), d_in)
+            layer[f"b_{name}"] = normal((GT_HEADS, width), d_in)
+        layer["w_r"] = normal((d_in, d_out), d_in)
+        layer["b_r"] = normal((d_out,), d_in)
+        layer["w_g"] = normal((3 * d_out,), 3 * d_out)
+        if not last:
+            layer["ln_w"] = 1.0 + 0.1 * normal((d_out,))
+            layer["ln_b"] = 0.1 * normal((d_out,))
+        params.append(layer)
+        d_in = d_out
+    return params
+
+
 def out_width(layer_params: Mapping[str, torch.Tensor]) -> int:
-    """A layer's output width, for every model: its bias's."""
-    return int(layer_params["b"].shape[0])
+    """A layer's output width, for every model: its bias's (the Graph
+    Transformer's skip bias ``b_r``)."""
+    return int(layer_params["b_r" if "b_r" in layer_params else "b"].shape[0])
 
 
 def params_from_jax(
@@ -179,8 +252,13 @@ def forward(
     one kernel on a card, so the duplicate rows are never written; on the
     CPU the reference's ``input_feats[inverse_index]`` and then the layer's
     sum), so the logits are the same bits as on the duplicate-carrying
-    path.  ``tracer`` records each GAT layer's ``attend`` and ``project``
-    spans on a lane of their own, ``model``."""
+    path.  The Graph Transformer's attention,
+    :func:`~repro_torch.kernels.dot_attend.kernel.dot_attend`, reads them
+    the same way, and its queries and skip read the destinations' own rows
+    as ``input_feats[inverse_index[:seeds]]``.  ``tracer`` records each GAT
+    layer's ``attend`` and ``project`` spans, and each Graph Transformer
+    layer's ``query``, ``attend``, ``project`` and ``gate`` spans, on a
+    lane of their own, ``model``."""
     _full_fp32()
     rev = tuple(reversed(fanouts))  # expansion order used by sample_blocks
     mult = 1
@@ -194,13 +272,15 @@ def forward(
         sizes.append(sizes[-1] * (1 + f))
 
     n_layers = len(fanouts)
-    if model == "gat":
+    if model in ("gat", "graph_transformer"):
+        layer_fn, act = ((_gat_layer, torch.nn.functional.elu) if model == "gat"
+                         else (_gt_layer, torch.nn.functional.relu))
         h, index = input_feats, inverse_index
         for li, l in enumerate(range(n_layers - 1, -1, -1)):
-            h = _gat_layer(params[li], h, index, sizes[l], rev[l], layer=li, tracer=tracer)
+            h = layer_fn(params[li], h, index, sizes[l], rev[l], layer=li, tracer=tracer)
             index = None  # layers 1 and up read their input in place
             if li < n_layers - 1:
-                h = torch.nn.functional.elu(h, inplace=True)
+                h = act(h, inplace=True)
         return h  # [num_seeds, num_classes]
     layer_fn = sage_layer if model == "graphsage" else gcn_layer
     # Walk from the deepest frontier inward; model layer 0 consumes raw feats.
@@ -253,10 +333,7 @@ def _gat_layer(
     """One GAT layer over a sampled block, reading ``rows`` through
     ``index`` (or in place): the attention over the input rows, then the
     heads' maps (:func:`~repro_torch.models.gnn.layers.gat_apply`)."""
-    args = None
-    if tracer.enabled:
-        args = {"layer": layer, "rows": num_dst, "positions": num_dst * (1 + fanout),
-                "indexed": index is not None}
+    args = _span_args(tracer, layer, num_dst, fanout, index)
     with tracer.span("attend", lane="model", args=args):
         att = gat_attend(rows, index, _fold(layer_params), num_dst=num_dst, fanout=fanout,
                          negative_slope=NEGATIVE_SLOPE)
@@ -265,6 +342,58 @@ def _gat_layer(
         if "w_res" in layer_params:
             self_h = rows[:num_dst] if index is None else rows[index[:num_dst].to(torch.int64)]
         return gat_apply(layer_params, att, self_h)
+
+
+def _span_args(tracer, layer: int, num_dst: int, fanout: int, index) -> dict | None:
+    """The ``model`` lane's span args of one layer (None when untraced)."""
+    if not tracer.enabled:
+        return None
+    return {"layer": layer, "rows": num_dst, "positions": num_dst * (1 + fanout),
+            "indexed": index is not None}
+
+
+def _gt_query(layer_params: Mapping[str, torch.Tensor], self_h: torch.Tensor) -> torch.Tensor:
+    """The destinations' queries folded through the heads' key maps,
+    ``[rows, H, F]``: ``u[i, k] = W_k^k (W_q^k h_i + b_q^k) / sqrt(D)``, the
+    scale in the query map's product, the fold one batched matmul written
+    in place."""
+    b_q = layer_params["b_q"]
+    heads, width = b_q.shape
+    rows, f = self_h.shape
+    scale = 1.0 / float(np.sqrt(width))
+    q = torch.addmm(b_q.view(-1), self_h, layer_params["w_q"], beta=scale, alpha=scale)
+    u = torch.empty((rows, heads, f), dtype=q.dtype, device=q.device)
+    torch.bmm(q.view(rows, heads, width).transpose(0, 1),
+              layer_params["w_k"].view(f, heads, width).permute(1, 2, 0), out=u.transpose(0, 1))
+    return u
+
+
+def _gt_layer(
+    layer_params: Mapping[str, torch.Tensor],
+    rows: torch.Tensor,
+    index: torch.Tensor | None,
+    num_dst: int,
+    fanout: int,
+    *,
+    layer: int,
+    tracer,
+) -> torch.Tensor:
+    """One Graph Transformer layer over a sampled block, reading ``rows``
+    through ``index`` (or in place): the destinations' folded queries, the
+    attention over their neighbours' input rows, the heads' value maps and
+    the skip (:func:`~repro_torch.models.gnn.layers.gt_apply`), then the
+    gate and, on a hidden layer, LayerNorm
+    (:func:`~repro_torch.models.gnn.layers.gt_gate`)."""
+    args = _span_args(tracer, layer, num_dst, fanout, index)
+    with tracer.span("query", lane="model", args=args):
+        self_h = rows[:num_dst] if index is None else rows[index[:num_dst].to(torch.int64)]
+        u = _gt_query(layer_params, self_h)
+    with tracer.span("attend", lane="model", args=args):
+        att = dot_attend(rows, index, u, num_dst=num_dst, fanout=fanout)
+    with tracer.span("project", lane="model", args=args):
+        h_att, skip = gt_apply(layer_params, att, self_h)
+    with tracer.span("gate", lane="model", args=args):
+        return gt_gate(layer_params, h_att, skip)
 
 
 def forward_layer(
@@ -289,13 +418,20 @@ def forward_layer(
     and ``degrees[num_dst]`` the true in-degrees.  The GCN divides by
     ``degree + 1`` (the sampled layer by ``fanout + 1``).  Zero-degree
     nodes aggregate nothing.  ``relu`` applies the inter-layer activation
-    (GraphSAGE's and GCN's ReLU, GAT's ELU).
+    (GraphSAGE's, GCN's and the Graph Transformer's ReLU, GAT's ELU).
 
     GAT softmaxes each head's scores over the node's exact in-neighbourhood
     plus itself (a multi-edge counts as often as it appears): the maximum
     of each segment, then the sums of the weights and of the weighted input
     rows, each reduced in the same fixed order as the sum below, then the
     heads' maps as in the sampled layer.
+
+    The Graph Transformer softmaxes each head's scores over the node's
+    exact in-neighbourhood alone, in the same fixed order: the maximum of
+    each segment, the sums of the weights and of the weighted input rows,
+    then the value maps, the skip, the gate and LayerNorm as in the sampled
+    layer.  A node with no in-edge attends to nothing: its attention output
+    is 0 (PyG's empty sum), and the gate mixes it with the skip.
 
     ``segment_ids`` must be sorted (``plan_chunks`` gives them so): the
     aggregate is ``torch.segment_reduce`` over segment lengths, which adds
@@ -316,6 +452,9 @@ def forward_layer(
     if model == "gat":
         h = _gat_exact(layer_params, self_feats, nbr_feats, segment_ids, num_dst, levels)
         return torch.nn.functional.elu(h) if relu else h
+    if model == "graph_transformer":
+        h = _gt_exact(layer_params, self_feats, nbr_feats, segment_ids, num_dst, levels)
+        return torch.relu(h) if relu else h
     agg = _segments(nbr_feats, "sum", levels)[:num_dst]
     if model == "graphsage":
         h = self_feats @ layer_params["w_self"] + agg @ layer_params["w_nbr"] + layer_params["b"]
@@ -352,15 +491,37 @@ def _gat_exact(layer_params, self_feats, nbr_feats, segment_ids, num_dst, levels
     return gat_apply(layer_params, att, self_feats)
 
 
+def _gt_exact(layer_params, self_feats, nbr_feats, segment_ids, num_dst, levels):
+    """A Graph Transformer layer over exact in-neighbourhoods (see
+    :func:`forward_layer`)."""
+    u = _gt_query(layer_params, self_feats)
+    heads, f = u.shape[1], u.shape[2]
+    edges = nbr_feats.shape[0]
+    dst = segment_ids[:edges].to(torch.int64)  # pad rows: segment num_dst, dropped
+    pad = u.new_zeros((1, heads))
+    e = torch.bmm(torch.cat([u, u.new_zeros((1, heads, f))])[dst], nbr_feats[:, :, None])[..., 0]
+    m = _segments(e, "max", levels)[:num_dst]  # an empty segment: -inf, read by no edge
+    p = torch.exp(e - torch.cat([m, pad])[dst])
+    den = _segments(p, "sum", levels)[:num_dst]
+    num = _segments((p[:, :, None] * nbr_feats[:, None, :]).reshape(edges, heads * f), "sum",
+                    levels)[:num_dst].view(num_dst, heads, f)
+    empty = den == 0  # no in-edge: every weight of the node is 0
+    h_att, skip = gt_apply(layer_params, num / den.masked_fill(empty, 1.0)[:, :, None],
+                           self_feats)
+    h_att.masked_fill_(empty[:, :1], 0.0)
+    return gt_gate(layer_params, h_att, skip)
+
+
 class GNN(nn.Module):
-    """GraphSAGE, GCN or GAT over sampled blocks, for inference.
+    """GraphSAGE, GCN, GAT or the Graph Transformer over sampled blocks,
+    for inference.
 
     Holds one ``ParameterDict`` per layer with the reference's ``[in,
     out]`` weights (no gradients: the system only serves).
     ``fused_forwards`` counts the forwards whose layer 0 ran in one kernel
-    (``seg_agg_indexed``, or GAT's ``gat_attend``), reading its rows
-    through the inverse map where there is one: every forward on a card,
-    none on the CPU."""
+    (``seg_agg_indexed``, GAT's ``gat_attend`` or the Graph Transformer's
+    ``dot_attend``), reading its rows through the inverse map where there
+    is one: every forward on a card, none on the CPU."""
 
     def __init__(
         self,
@@ -389,7 +550,9 @@ class GNN(nn.Module):
         *,
         tracer=NULL_TRACER,
     ) -> torch.Tensor:
-        kernel = gat_attend if self.model == "gat" else seg_agg_indexed
+        # The kernel the model's layer 0 runs in, looked up at each call.
+        kernel = {"gat": gat_attend, "graph_transformer": dot_attend}.get(self.model,
+                                                                          seg_agg_indexed)
         launches = kernel.launches
         out = forward(
             list(self.layers),

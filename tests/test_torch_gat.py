@@ -304,16 +304,19 @@ def test_gat_layerwise_matches_the_reference_on_every_route(engine):
     assert np.abs(outs[0] - want.numpy()).max() / want.abs().max() <= 1e-5
 
 
-# ------------------------------------------------- GraphSAGE and GCN unchanged
+# ------------------------------------------- GraphSAGE, GCN and GAT unchanged
 
-# sha256 (first 32 hex digits) read from the code before GAT came: the
-# weights, the logits of the indexed and the dense form and one layer-wise
-# layer, at the seed and sizes below.
+# sha256 (first 32 hex digits) of the weights, the logits of the indexed and
+# the dense form and one layer-wise layer, at the seed and sizes below:
+# GraphSAGE's and GCN's read from the code before GAT came, GAT's from the
+# code before the Graph Transformer came.
 PINNED = {
     "graphsage": ("7868f1c48e11e2105f44bab21b751f28", "76175824442941ccab4cd4652ef051ac",
                   "76175824442941ccab4cd4652ef051ac", "633dae2df685eb5b4b05a8852fd55d3d"),
     "gcn": ("74017db95e1c4280525a31a0993a033e", "ea27656f5d37b400cf8af93caa870fe6",
             "ea27656f5d37b400cf8af93caa870fe6", "daab10c5a31d0a793bfa332d134c0d08"),
+    "gat": ("912da372c04cd57c2d6e9ed8ed158218", "82149fdd756b53c92780e145569c3462",
+            "82149fdd756b53c92780e145569c3462", "465c6f6b2347384f91e20caf5100886b"),
 }
 
 

@@ -27,6 +27,8 @@ from repro_torch.graph.datasets import load_dataset
 from repro_torch.kernels.cached_gather import kernel as tk
 from repro_torch.kernels.cached_gather.ops import cached_feature_gather
 from repro_torch.kernels.cached_gather.ref import cached_gather_ref
+from repro_torch.kernels.dot_attend import kernel as da
+from repro_torch.kernels.dot_attend.ref import dot_attend_ref
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_split_ref,
                                                       expand_kv)
@@ -900,6 +902,137 @@ def test_gat_engine_routes_agree_and_count_the_fused_batches_on_the_card(cuda):
         rep = eng.run(config=cfg, max_batches=4, collect_outputs=True, warmup=False)
         assert rep.fused_batches == rep.num_batches == 4
         assert ga.gat_attend.launches - before == 8
+        outs.append(np.stack(eng.last_outputs))
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0])
+
+
+# The Graph Transformer's attention at the cell's shapes
+# (gt-products.offline4096: layer 0 through the inverse map over
+# ogbn-products' rows, layers 1 and 2 in place on 512-float rows, 4 heads),
+# then one to eight heads, one slot and a fanout past a chunk.  The queries
+# are drawn at the scale the fold gives them (scores of unit spread).  Held
+# to ref.py in float64 on the same float32 inputs: the widest gap within
+# 1e-5 of the largest output (float32 scores of up to 512 terms and the
+# online softmax's rescaling, against torch's softmax of float64 scores,
+# as gat_attend is held).  The indexed and the dense form give the same
+# bits.
+DOT_SHAPES = [(270_336, 15, 100, 4, 2_449_029), (24_576, 10, 512, 4, 0), (4096, 5, 512, 4, 0),
+              (1000, 15, 600, 4, 900), (999, 17, 256, 3, 700), (513, 1, 4, 1, 300),
+              (300, 6, 512, 8, 400), (77, 4, 132, 2, 50), (64, 9, 1024, 5, 64)]
+
+
+@pytest.mark.parametrize("num_dst,fanout,f,heads,rows", DOT_SHAPES)
+def test_dot_attend_matches_ref(cuda, num_dst, fanout, f, heads, rows):
+    gen = torch.Generator(device=cuda).manual_seed(num_dst + f + 33)
+    positions = num_dst * (1 + fanout)
+    u = torch.randn((num_dst, heads, f), generator=gen, device=cuda) / f ** 0.5
+    forms = []
+    if rows:
+        table = torch.full((rows + 3, f), float("nan"), device=cuda)  # the last 3 rows are pad
+        table[:rows] = torch.randn((rows, f), generator=gen, device=cuda)
+        idx = torch.randint(0, rows, (positions,), generator=gen, device=cuda, dtype=torch.int32)
+        forms.append((table, idx))
+        forms.append((table[idx.long()], None))
+    else:
+        forms.append((torch.randn((positions, f), generator=gen, device=cuda), None))
+    kw = dict(num_dst=num_dst, fanout=fanout)
+    first = None
+    for x, index in forms:
+        before = da.dot_attend.launches
+        got = da.dot_attend(x, index, u, **kw)
+        torch.cuda.synchronize()
+        assert da.dot_attend.launches == before + 1
+        assert got.shape == (num_dst, heads, f) and not torch.isnan(got).any()
+        exact = dot_attend_ref(x.double(), index, u.double(), **kw)
+        gap = float((got.double() - exact).abs().max() / exact.abs().max())
+        assert gap <= 1e-5, gap
+        if first is None:
+            first = got
+        else:  # the dense form of the same positions: the same bits
+            assert torch.equal(first, got)
+        del x, exact
+
+
+def test_dot_attend_odd_base_empty_and_refusals(cuda):
+    table = torch.randn(41 * 64 + 1, device=cuda)[1:].view(41, 64)  # a base 4 bytes past 16
+    idx = torch.randint(0, 41, (7 * 4,), device=cuda, dtype=torch.int32)
+    u = torch.randn((7, 3, 64), device=cuda) / 8
+    kw = dict(num_dst=7, fanout=3)
+    got = da.dot_attend(table, idx, u, **kw)  # the wrapper copies the table to an aligned base
+    torch.testing.assert_close(got, dot_attend_ref(table, idx, u, **kw), rtol=1e-5, atol=1e-6)
+    assert torch.equal(da.dot_attend(table.clone(), idx, u, **kw), got)
+    dense = torch.empty(28 * 64 + 1, device=cuda)[1:].view(28, 64)
+    dense.copy_(table[idx.long()])
+    assert torch.equal(da.dot_attend(dense, None, u, **kw), got)
+    odd_u = torch.empty(u.numel() + 1, device=cuda)[1:].view(u.shape)
+    odd_u.copy_(u)
+    assert torch.equal(da.dot_attend(table, idx, odd_u, **kw), got)
+    empty = da.dot_attend(table, idx[:0], u[:0], num_dst=0, fanout=3)
+    assert empty.shape == (0, 3, 64)
+    with pytest.raises(ValueError, match="float32"):
+        da.dot_attend(table.double(), idx, u, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        da.dot_attend(table, idx.long(), u, **kw)
+    with pytest.raises(ValueError, match="idx on"):
+        da.dot_attend(table, idx.cpu(), u, **kw)
+    with pytest.raises(ValueError, match="heads"):
+        da.dot_attend(table, idx, torch.zeros((7, 9, 64), device=cuda), **kw)
+    for f in (602, 1028):  # a row the kernel does not read in 16-byte vectors, a row too wide
+        with pytest.raises(ValueError, match="multiple of 4 floats, at most 1024"):
+            da.dot_attend(torch.zeros((28, f), device=cuda), None,
+                          torch.zeros((7, 1, f), device=cuda), **kw)
+
+
+def test_gt_forward_inverse_index_equals_the_dense_form_on_the_card(cuda):
+    """The Graph Transformer at the cell's widths (4 heads of 128 twice, 4
+    heads averaged): layer 0 through dot_attend with the inverse map and in
+    the dense form gives the same bits, three launches a forward, and the
+    logits sit within 2e-5 of the largest of the CPU's (the benchmark's
+    ``logit_gap`` limit: the card's products and sums run in other orders)."""
+    from repro_torch.models.gnn import models as gm
+
+    fanouts = (15, 10, 5)
+    gen = torch.Generator().manual_seed(8)
+    params = gm.init_params(gen, "graph_transformer", 100, 47, device=cuda)
+    positions = 64 * 16 * 11 * 6
+    uniq = torch.randn((positions // 3 + 11, 100), generator=gen)
+    uniq[-11:] = float("nan")  # pad rows, never read
+    inverse = torch.randint(0, positions // 3, (positions,), generator=gen, dtype=torch.int32)
+    kw = dict(model="graph_transformer", fanouts=fanouts)
+    before = da.dot_attend.launches
+    got = gm.forward(params, uniq.to(cuda), inverse_index=inverse.to(cuda), **kw)
+    dense = gm.forward(params, uniq[inverse.long()].to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert da.dot_attend.launches == before + 6
+    assert got.shape == (64, 47) and torch.equal(got, dense)
+    cpu = gm.forward([{k: v.cpu() for k, v in p.items()} for p in params], uniq,
+                     inverse_index=inverse, **kw)
+    assert float((got.cpu() - cpu).abs().max() / cpu.abs().max()) <= 2e-5
+
+
+def test_gt_engine_routes_agree_and_count_the_fused_batches_on_the_card(cuda):
+    """The Graph Transformer through the engine on the card: every batch's
+    layers run in dot_attend (two launches a batch of a two-layer model, one
+    fused batch), and the dedup, table and prefetch routes give the same
+    bits."""
+    from repro_torch.models.gnn import models as gm
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    params = gm.init_params(torch.Generator().manual_seed(3), "graph_transformer", 100, 47,
+                            n_layers=2)
+    eng = GNNInferenceEngine(ds, model="graph_transformer", fanouts=(4, 3), batch_size=128,
+                             params=params, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    outs = []
+    for cfg in (EngineConfig(use_kernel=True, dedup=True, pipeline_depth=2),
+                EngineConfig(use_kernel=True, dedup=False, pipeline_depth=2),
+                EngineConfig(use_kernel=True, dedup=True, prefetch=True, pipeline_depth=1),
+                EngineConfig(use_kernel=False, pipeline_depth=1)):
+        before = da.dot_attend.launches
+        rep = eng.run(config=cfg, max_batches=4, collect_outputs=True, warmup=False)
+        assert rep.fused_batches == rep.num_batches == 4
+        assert da.dot_attend.launches - before == 8
         outs.append(np.stack(eng.last_outputs))
     for out in outs[1:]:
         np.testing.assert_array_equal(out, outs[0])
