@@ -36,7 +36,10 @@ whose errors is caught:
    the losing host row —, #1 on
    the miss rows alone (every occurrence against each distinct row
    once), and #2's in-kernel block modes against ``classify_blocks``;
-   then the device work of one batch's feature stage on the plain and
+   then #2 at Reddit's shape (F = 602, pinned host) on the dedup bucket
+   and with every row missing: equal to ``ref.py``, read by aligned
+   lines, its miss bytes' rate beside the pinned copy's, and the lines it
+   reads a miss row; then the device work of one batch's feature stage on the plain and
    the dedup kernel route, with the dedup sort and the former wrapper
    classification alone, and the prefetch staging of one batch's misses
    (host clock, with its device→host id read alone), whose pack #1 and
@@ -1289,6 +1292,62 @@ def split_phase(case, h2d) -> dict:
         f"spans, {counts[2]} host spans of {len(want_mode)}")
     return {"rows": rows, "select_all_hit_ratio": ratio, "select_all_hit_trials_ms": trials,
             "miss_only": miss, "block_modes": counts}
+
+
+def line_phase(case, h2d) -> dict:
+    """Phase 4, continued at Reddit's shape (F = 602, pinned host table):
+    #2 on the dedup bucket as the path gives it and with every row
+    missing, each output equal to ref.py, and each launch reading its host
+    side by aligned lines (``line_launches``); its miss bytes over its
+    time beside the pinned copy rate; and the lines it reads a miss row
+    (``line_plan``'s count over the bucket's all-miss spans and the miss
+    rows of its other blocks) beside the lines a row's bytes fill."""
+    import torch
+
+    from repro_torch.kernels.cached_gather import kernel as tk
+    from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+    from repro_torch.kernels.cached_gather.ref import cached_gather_ref
+
+    hot, host, uids = case["hot"], case["host"], case["uids"]
+    n_hot, n_host, row = hot.shape[0], host.shape[0], hot.shape[1] * hot.element_size()
+    base = tk._host_pointer(host)
+    out = {}
+    for variant, pos in (("main", case["upos"]), ("all-miss", torch.full_like(uids, -1))):
+        before = tk.cached_gather_blocks.line_launches
+        got = tk.cached_gather_blocks(hot, host, uids, pos)
+        if not torch.equal(got, cached_gather_ref(hot, host, uids, pos)):
+            raise AssertionError(f"#2 disagrees with ref.py at F = 602 ({variant})")
+        if tk.cached_gather_blocks.line_launches != before + 1:
+            raise AssertionError("#2 did not read Reddit's pinned miss rows by aligned lines")
+        del got
+        ms = cuda_ms(lambda: tk.cached_gather_blocks(hot, host, uids, pos), reps=5)
+        # The ranges copy_lines reads: each all-miss span of ROW_BLOCK rows,
+        # and each miss row of every other block.
+        mode, start = tk.classify_blocks(uids, pos, n_hot, n_host, ROW_BLOCK)
+        span = mode == 2
+        in_span = span.repeat_interleave(ROW_BLOCK)[: uids.shape[0]]
+        rows_alone = uids[(pos < 0) & ~in_span].to(torch.int64).clamp(0, n_host - 1)
+        ranges = [(base + start[span].to(torch.int64) * row, ROW_BLOCK * row),
+                  (base + rows_alone * row, row)]
+        n_lines = sum(int(((a % tk.LINE_BYTES + nbytes + tk.LINE_BYTES - 1)
+                           // tk.LINE_BYTES).sum()) for a, nbytes in ranges)
+        for a, nbytes in ranges:  # the count is line_plan's
+            for x in a[:16].tolist():
+                plan = tk.line_plan(x, nbytes, base, base + n_host * row)
+                if plan["n_lines"] != (x % tk.LINE_BYTES + nbytes + tk.LINE_BYTES - 1) // tk.LINE_BYTES:
+                    raise AssertionError("line_plan's count differs from the kernel's arithmetic")
+        miss_rows = int((pos < 0).sum())
+        rate = miss_rows * row / (ms / 1e3)
+        out[variant] = dict(rows=int(uids.shape[0]), miss_rows=miss_rows, ms=ms,
+                            bound_ms=bound_ms(hot, uids, pos, True, h2d), miss_bytes_per_s=rate,
+                            spans=int(span.sum()), lines_per_miss_row=n_lines / max(miss_rows, 1),
+                            lines_filled_per_row=row / tk.LINE_BYTES)
+        log(f"  cached_gather_blocks   F=602 pinned {variant:8s} rows={uids.shape[0]:8d} miss="
+            f"{miss_rows:8d} kernel {ms:8.3f} ms  bound {out[variant]['bound_ms']:7.3f} ms  miss "
+            f"bytes {rate / 1e9:.2f} GB/s (pinned copy {h2d / 1e9:.2f} GB/s); lines read a miss "
+            f"row {out[variant]['lines_per_miss_row']:.2f} ({row / tk.LINE_BYTES:.2f} filled by "
+            f"its bytes; {out[variant]['spans']} all-miss spans), by aligned lines, equal")
+    return out
 
 
 def main_path_phase(eng) -> dict:
@@ -4144,6 +4203,7 @@ def main() -> int:
     inputs = kernel_inputs(eng)
     max_err, rows = kernel_phase(inputs, build["h2d_bytes_per_s"])
     split = split_phase(inputs[100], build["h2d_bytes_per_s"])
+    lines = line_phase(inputs[602], build["h2d_bytes_per_s"])
     feature_stage = feature_stage_phase(eng, inputs[100])
     del inputs
     torch.cuda.empty_cache()
@@ -4246,7 +4306,7 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
-        "split": split, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
+        "split": split, "lines": lines, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "sampler": sampler, "gat": gat,
         "gt": gt,
         "baselines": baselines,

@@ -48,6 +48,28 @@
 // for #2's spans on the H100 and slower from a device host table
 // (PERF.md), so it is not kept there.
 //
+// #2 reads long miss rows from a pinned host table as whole aligned
+// 128-byte lines (copy_lines).  Reddit's 2,408-byte rows are 8-byte
+// aligned, so they were read as 301 vectors of 8 bytes: 256 bytes an
+// instruction, and as a row starts 8 bytes off a line (id x 2,408 is 104
+// mod 128) each instruction met three lines, two in part, and a row's
+// 45-vector tail made a round trip alone.  At 34% hits on a sorted
+// unique frontier that came to about 26 GB/s of miss bytes, whether the
+// rows went through registers (#1, #2) or a cp.async ring (#3), against
+// 43 GB/s read for 400-byte rows as 16-byte vectors, 49 GB/s by the copy
+// engine, and about four times slower with L1-bypassing .cg reads than
+// with .ca.  The 43 GB/s counted the dedup bucket's pad rows, which all
+// read one host row: 400-byte rows one in nine read 23 GB/s, and a plain
+// sequential read of pinned memory by every SM, whole lines of 16-byte
+// loads, 23-26 GB/s with the copy engine at 42 (PERF.md).  So the SM's
+// own reads of pinned memory have a ceiling below the copy engine's, and
+// the lines bring #2 to it: 1.16x on Reddit's f32 rows, 1.45x on its
+// bf16 rows, whose 4-byte vectors read well below it.  The wrapper takes
+// the line copy for rows of more than 32 vectors from a pinned host table
+// whose base is 16-byte aligned (kernel.py, _takes_lines); shorter rows
+// are one instruction a row already, and hit rows and a host table on the
+// card are HBM reads, so they keep copy_rows.
+//
 // #3 computes what the TPU select kernel computes, not how: there the
 // BlockSpec index maps stage BOTH candidate tiles of every row (an index
 // map cannot depend on the data) and jnp.where keeps one, so the losing
@@ -162,6 +184,108 @@ __device__ __forceinline__ void copy_rows(const char* src, char* dst, int rows, 
   }
 }
 
+// Long miss rows from a pinned host table are read as whole aligned lines
+// (copy_lines): one instruction reads kLinesPerLoad lines of kLine bytes,
+// kLanesPerLine lanes a line, each lane one kPiece-byte piece.
+constexpr int kLine = 128;
+constexpr int kPiece = 16;
+constexpr int kLanesPerLine = kLine / kPiece;
+constexpr int kLinesPerLoad = kWarp / kLanesPerLine;
+
+union Piece {
+  uint4 whole;
+  unsigned char bytes[kPiece];
+};
+
+// The piece at q, read only inside the host table [lo, hi): whole where it
+// lies inside, else its V units below hi (the table's last piece, when the
+// table ends off a 16-byte boundary); a piece outside the table is not read.
+template <typename V>
+__device__ __forceinline__ Piece load_piece(const char* q, const char* lo, const char* hi) {
+  Piece v;
+  v.whole = make_uint4(0, 0, 0, 0);
+  if (q < lo || q >= hi) return v;
+  if (q + kPiece <= hi) {
+    v.whole = *reinterpret_cast<const uint4*>(q);
+    return v;
+  }
+#pragma unroll
+  for (int k = 0; k < kPiece / int(sizeof(V)); ++k)
+    if (q + (k + 1) * int(sizeof(V)) <= hi)
+      reinterpret_cast<V*>(v.bytes)[k] = reinterpret_cast<const V*>(q)[k];
+  return v;
+}
+
+// Store the V units of a piece that fall inside its range: the piece starts
+// `off` bytes after the range's first source byte (negative in the head
+// line, before the range) and the range is `bytes` long.
+template <typename V>
+__device__ __forceinline__ void store_piece(const Piece& v, int64_t off, int64_t bytes, char* dst) {
+#pragma unroll
+  for (int k = 0; k < kPiece / int(sizeof(V)); ++k) {
+    const int64_t x = off + k * int64_t(sizeof(V));
+    if (x >= 0 && x < bytes) *reinterpret_cast<V*>(dst + x) = reinterpret_cast<const V*>(v.bytes)[k];
+  }
+}
+
+// The warp copies `segs` (<= 32) ranges of `bytes` bytes each out of the
+// pinned host table [lo, hi), whose base is 16-byte aligned: lane s < segs
+// holds range s's source in `src` and its output address in `dst`.  The
+// aligned lines that cover the ranges are read as one stream, four whole
+// lines an instruction and kUnroll instructions in flight before any
+// store, so the next range's lines are read before this one's are stored
+// and no range's tail makes a round trip alone.  Line t of the stream
+// belongs to the range whose lines end first after t (the lanes count the
+// ranges that end at or before it, a ballot for each of an instruction's
+// four lines); each lane stores the V units of its piece that fall inside
+// that range, at the range's output plus their offset, so the bytes of a
+// neighbouring row in a range's first and last line are read and dropped.
+template <typename V>
+__device__ __forceinline__ void copy_lines(const char* src, char* dst, int segs, int64_t bytes,
+                                           const char* lo, const char* hi, int lane) {
+  const auto a = reinterpret_cast<unsigned long long>(src);
+  const int64_t head = lane < segs ? int64_t(a % kLine) : 0;  // bytes of the first line before a
+  const int n = lane < segs ? int((head + bytes + kLine - 1) / kLine) : 0;  // lines of the range
+  int end = n;  // the stream's lines up to and including this range's
+#pragma unroll
+  for (int d = 1; d < kWarp; d *= 2) {
+    const int v = __shfl_up_sync(kFull, end, d);
+    if (lane >= d) end += v;
+  }
+  const int total = __shfl_sync(kFull, end, kWarp - 1);
+  // Stream line 0's offset from this range's first byte: line t's piece
+  // lies at rel + t * kLine + piece bytes after it.
+  const long long rel = -head - int64_t(end - n) * kLine;
+  const int sub = lane / kLanesPerLine;  // this lane's line within one instruction
+  const int piece = (lane % kLanesPerLine) * kPiece;
+  for (int t0 = 0; t0 < total; t0 += kLinesPerLoad * kUnroll) {
+    Piece buf[kUnroll];
+    int seg[kUnroll];
+    int64_t off[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int first = t0 + u * kLinesPerLoad;
+      int s = 0;
+#pragma unroll
+      for (int g = 0; g < kLinesPerLoad; ++g) {
+        const int ended = __popc(__ballot_sync(kFull, end <= first + g));
+        if (g == sub) s = ended;
+      }
+      seg[u] = min(s, kWarp - 1);  // past the stream's end: not read
+      const int t = first + sub;
+      off[u] = __shfl_sync(kFull, rel, seg[u]) + int64_t(t) * kLine + piece;
+      const auto from = reinterpret_cast<const char*>(__shfl_sync(kFull, a, seg[u])) + off[u];
+      if (t < total) buf[u] = load_piece<V>(from, lo, hi);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const auto out = reinterpret_cast<char*>(
+          __shfl_sync(kFull, reinterpret_cast<unsigned long long>(dst), seg[u]));
+      if (t0 + u * kLinesPerLoad + sub < total) store_piece<V>(buf[u], off[u], bytes, out);
+    }
+  }
+}
+
 // #1, warp-specialised for short rows read from pinned host memory: in
 // each CTA, miss_warps warps (the wrapper passes 2 then, else 0) copy only
 // the miss rows and the others only the hit rows, so a miss row's PCIe
@@ -224,8 +348,12 @@ __global__ void __launch_bounds__(kThreads)
 // src runs consecutively, 2 if every row misses and src runs
 // consecutively, else 0 (and the ragged last block is 0).  Modes 1 and 2
 // copy the block as one span from src[0]; mode 0 copies row by row.
+// With kLines (rows of more than 32 vectors from a pinned host table whose
+// base is 16-byte aligned) the host side is read by aligned lines: a mode-2
+// span with copy_lines, and a mode-0 block's miss rows, gathered into the
+// first lanes, with one copy_lines before its hit rows' copy_rows.
 // `modes`, when not null, receives each block's mode.
-template <typename V>
+template <typename V, bool kLines = false>
 __global__ void __launch_bounds__(kThreads)
     gather_blocks_kernel(const char* __restrict__ hot, const char* __restrict__ host,
                          const int32_t* __restrict__ idx, const int32_t* __restrict__ pos,
@@ -234,6 +362,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
   const int n_vec = int(row_bytes / int64_t(sizeof(V)));
+  const char* host_end = host + n_host * row_bytes;
   const int64_t n_blocks = (s + row_block - 1) / row_block;
   const int64_t stride = int64_t(gridDim.x) * kWarpsPerCta;
   for (int64_t b = int64_t(blockIdx.x) * kWarpsPerCta + warp; b < n_blocks; b += stride) {
@@ -267,14 +396,36 @@ __global__ void __launch_bounds__(kThreads)
     char* dst = out + row0 * row_bytes;
     if (mode != 0) {
       const char* src = (mode == 1 ? hot : host) + int64_t(start) * row_bytes;
-      copy_rows<V>(src, dst, 1, n_rows * n_vec, lane);
+      if (kLines && mode == 2)
+        copy_lines<V>(src, dst, 1, n_rows * row_bytes, host, host_end, lane);
+      else
+        copy_rows<V>(src, dst, 1, n_rows * n_vec, lane);
     } else {
       for (int j0 = 0; j0 < n_rows; j0 += kWarp) {
         const int rows = min(kWarp, n_rows - j0);
         const char* src = lane < rows ? winning_row(hot, host, idx, pos, row0 + j0 + lane,
                                                     row_bytes, n_hot, n_host)
                                       : nullptr;
-        copy_rows<V>(src, dst + int64_t(j0 + lane) * row_bytes, rows, n_vec, lane);
+        char* row_dst = dst + int64_t(j0 + lane) * row_bytes;
+        if constexpr (kLines) {
+          const bool miss = lane < rows && pos[row0 + j0 + lane] < 0;
+#pragma unroll
+          for (int side = 0; side < 2; ++side) {  // the miss rows, then the hit rows
+            const unsigned set = __ballot_sync(kFull, lane < rows && miss == (side == 0));
+            if (set == 0) continue;
+            const int from = lane < __popc(set) ? int(__fns(set, 0, lane + 1)) : 0;
+            const auto s_from = reinterpret_cast<const char*>(
+                __shfl_sync(kFull, reinterpret_cast<unsigned long long>(src), from));
+            const auto d_from = reinterpret_cast<char*>(
+                __shfl_sync(kFull, reinterpret_cast<unsigned long long>(row_dst), from));
+            if (side == 0)
+              copy_lines<V>(s_from, d_from, __popc(set), row_bytes, host, host_end, lane);
+            else
+              copy_rows<V>(s_from, d_from, __popc(set), n_vec, lane);
+          }
+        } else {
+          copy_rows<V>(src, row_dst, rows, n_vec, lane);
+        }
       }
     }
   }
@@ -442,13 +593,15 @@ int select_smem(int unroll, int stages) {
   return sizeof(V) >= 4 ? kWarpsPerCta * stages * unroll * kWarp * int(sizeof(V)) : 0;
 }
 
-// The kernel a launch of `kind` (0: #1, 1: #2, 2: #3) and vector type V runs.
+// The kernel a launch of `kind` (0: #1, 1: #2, 2: #3, 3: #2 by aligned lines)
+// and vector type V runs.
 template <typename V>
 const void* kernel_of(int kind) {
   switch (kind) {
     case 0: return reinterpret_cast<const void*>(gather_rows_kernel<V>);
     case 1: return reinterpret_cast<const void*>(gather_blocks_kernel<V>);
     case 2: return reinterpret_cast<const void*>(gather_select_kernel<V>);
+    case 3: return reinterpret_cast<const void*>(gather_blocks_kernel<V, true>);
     default: return nullptr;
   }
 }
@@ -499,9 +652,14 @@ template <typename V>
 struct LaunchBlocks {
   static cudaError_t run(const char* hot, const char* host, const int32_t* idx, const int32_t* pos,
                   char* out, int32_t* modes, int64_t s, int64_t row_bytes, int64_t n_hot,
-                  int64_t n_host, int64_t row_block, unsigned grid, cudaStream_t stream) {
-    gather_blocks_kernel<V><<<grid, kThreads, 0, stream>>>(hot, host, idx, pos, out, modes, s,
-                                                           row_bytes, n_hot, n_host, row_block);
+                  int64_t n_host, int64_t row_block, bool lines, unsigned grid,
+                  cudaStream_t stream) {
+    if (lines)
+      gather_blocks_kernel<V, true><<<grid, kThreads, 0, stream>>>(
+          hot, host, idx, pos, out, modes, s, row_bytes, n_hot, n_host, row_block);
+    else
+      gather_blocks_kernel<V><<<grid, kThreads, 0, stream>>>(hot, host, idx, pos, out, modes, s,
+                                                             row_bytes, n_hot, n_host, row_block);
     return cudaSuccess;
   }
 };
@@ -537,8 +695,8 @@ struct LaunchSelect {
 extern "C" {
 
 // CTAs of 256 threads that fit on one SM for a launch of `kind` (0: #1,
-// 1: #2, 2: #3) at vector width vec_bytes with smem_bytes of dynamic
-// shared memory (#3's ring; 0 for #1 and #2).
+// 1: #2, 2: #3, 3: #2 by aligned lines) at vector width vec_bytes with
+// smem_bytes of dynamic shared memory (#3's ring; 0 for #1 and #2).
 int dci_gather_occupancy(int kind, int vec_bytes, int smem_bytes, int* ctas_per_sm) {
   const void* fn = kernel_of(kind, vec_bytes);
   if (fn == nullptr || smem_bytes < 0) return int(cudaErrorInvalidValue);
@@ -577,16 +735,20 @@ int dci_cached_gather_select(const void* hot, const void* host, const void* idx,
                                 static_cast<cudaStream_t>(stream));
 }
 
+// `lines` (0 or 1): read the host side by aligned lines, which needs a
+// 16-byte aligned host base.
 int dci_cached_gather_blocks(const void* hot, const void* host, const void* idx,
                              const void* pos, void* out, void* modes, long long s,
                              long long row_bytes, long long n_hot, long long n_host,
-                             long long row_block, int vec_bytes, int grid, void* stream) {
-  if (grid < 1 || row_block < 1) return int(cudaErrorInvalidValue);
+                             long long row_block, int vec_bytes, int lines, int grid,
+                             void* stream) {
+  if (grid < 1 || row_block < 1 || (lines && reinterpret_cast<uintptr_t>(host) % kPiece != 0))
+    return int(cudaErrorInvalidValue);
   return dispatch<LaunchBlocks>(
       vec_bytes, static_cast<const char*>(hot), static_cast<const char*>(host),
       static_cast<const int32_t*>(idx), static_cast<const int32_t*>(pos),
       static_cast<char*>(out), static_cast<int32_t*>(modes), int64_t(s), int64_t(row_bytes),
-      int64_t(n_hot), int64_t(n_host), int64_t(row_block), unsigned(grid),
+      int64_t(n_hot), int64_t(n_host), int64_t(row_block), lines != 0, unsigned(grid),
       static_cast<cudaStream_t>(stream));
 }
 

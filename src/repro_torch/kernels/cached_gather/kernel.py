@@ -32,8 +32,29 @@ rows (a longer row alone, by all 32 lanes), and a miss warp the misses
 among 32 rows at a time.  A warp of #2 takes one row block at a time,
 classifies it with warp votes by the reference's rule (the kernel does
 what :func:`classify_blocks` states), and copies a run as one span and
-any other block row by row.  Both stage rows through registers.  #3
-runs the same persistent grid; its warps stride over chunks of rows
+any other block row by row.  Both stage rows through registers.
+
+Long miss rows from pinned host memory are read by whole aligned lines
+(:func:`_takes_lines`, :func:`line_plan`).  Reddit's 2,408-byte rows,
+8-byte aligned and 8 bytes off a 128-byte line, were read as 8-byte
+vectors, 256 bytes over three lines an instruction and each row's tail
+alone: about 26 GB/s of miss bytes through registers (#1, #2) or a
+``cp.async`` ring (#3), against 43 GB/s for 400-byte rows read as 16-byte
+vectors, 49 GB/s by the copy engine, and about four times slower with
+L1-bypassing ``.cg`` reads than ``.ca``.  The 43 GB/s counted the dedup
+bucket's pad rows, which read one host row again and again: the SM's own
+reads of pinned memory, whole lines in order, reach only 23-26 GB/s
+where the copy engine reaches 42 (PERF.md).  So #2 reads the lines that
+cover a miss range as 16-byte pieces, eight lanes a line and four whole
+lines an instruction, in one stream over a block's miss rows, never
+outside the host table, and stores each byte where it belongs: that
+brings Reddit's rows to the ceiling (1.16x on f32 rows, 1.45x on bf16's
+4-byte vectors).  The rule, from what the wrapper sees: rows of more than
+32 vectors, a pinned host table, a 16-byte aligned host base.  Shorter
+rows are one instruction a row already, and hit rows and a host table on
+the card are HBM reads, so they are copied as before.
+
+#3 runs the same persistent grid as #1 and #2; its warps stride over chunks of rows
 (:func:`_select_ring`: a chunk is one stage of a warp's ring in shared
 memory), issue each stage's ``cp.async`` copies, keep ``stages - 1``
 stages in flight and store the oldest with coalesced stores; 2- and
@@ -45,7 +66,9 @@ Routing: on CPU tensors a wrapper computes the plain version
 or raises — there is no fallback.  The host operand is then a CUDA tensor
 on the same device or a pinned CPU tensor (pageable memory would fault).
 Each wrapper counts its launches in a plain integer attribute,
-``<wrapper>.launches``, bumped only where the kernel is launched.
+``<wrapper>.launches``, bumped only where the kernel is launched;
+``cached_gather_blocks.line_launches`` counts those of its launches that
+read the host side by aligned lines.
 """
 
 from __future__ import annotations
@@ -64,6 +87,7 @@ __all__ = [
     "cached_gather_blocks",
     "cached_gather_select",
     "classify_blocks",
+    "line_plan",
     "load_library",
 ]
 
@@ -73,7 +97,10 @@ ROW_BLOCK = 8  # default rows per block in the row-block variant
 WARPS_PER_CTA = 8  # kThreads / 32
 MISS_WARPS = 2  # warps of each #1 CTA that copy only the miss rows of short rows
 UNROLL = 8  # kUnroll: load instructions a warp issues before it stores
-KIND_ROWS, KIND_BLOCKS, KIND_SELECT = 0, 1, 2  # dci_gather_occupancy's kinds
+# dci_gather_occupancy's kinds; KIND_LINES is #2 reading its host side by lines.
+KIND_ROWS, KIND_BLOCKS, KIND_SELECT, KIND_LINES = 0, 1, 2, 3
+LINE_BYTES = 128  # kLine: the aligned lines #2 reads long pinned miss rows by
+PIECE_BYTES = 16  # kPiece: what one lane reads of a line
 # #3's rings: the eight warps of a CTA take 192 KB of an H100 SM's 256 KB
 # of L1 and shared memory, so one CTA fits an SM and the rest stays L1,
 # which cp.async.ca passes through (rings of 224 KB per SM, or smaller
@@ -93,7 +120,7 @@ def load_library() -> ctypes.CDLL:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.dci_cached_gather.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, i, i, i, p]
     lib.dci_cached_gather_select.argtypes = [p, p, p, p, p, ll, ll, ll, ll, i, i, i, i, i, p]
-    lib.dci_cached_gather_blocks.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, ll, i, i, p]
+    lib.dci_cached_gather_blocks.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll, ll, i, i, i, p]
     lib.dci_gather_occupancy.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.dci_host_device_pointer.argtypes = [p, ctypes.POINTER(ctypes.c_void_p)]
     for fn in (
@@ -186,6 +213,34 @@ def _miss_warps(row_bytes: int, vec: int, host_on_card: bool) -> int:
     the misses are HBM reads too and the split only idles two warps, and
     for longer rows it measured slower."""
     return MISS_WARPS if row_bytes // vec <= 32 and not host_on_card else 0
+
+
+def _takes_lines(row_bytes: int, vec: int, host_on_card: bool, host_ptr: int) -> bool:
+    """Whether #2 reads its host side by whole aligned lines: rows of more
+    than 32 vectors read from a pinned host table whose base is 16-byte
+    aligned.  A row of up to 32 vectors is already read by one instruction
+    (products' 400-byte rows read at the same rate as the lines), a host
+    table on the card is HBM, and a base off 16 bytes would cut the pieces
+    at the table's head."""
+    return row_bytes // vec > 32 and not host_on_card and host_ptr % PIECE_BYTES == 0
+
+
+def line_plan(src: int, nbytes: int, lo: int, hi: int) -> dict:
+    """What ``copy_lines`` reads for one range ``[src, src + nbytes)`` of
+    the pinned host table ``[lo, hi)`` (addresses in bytes): its first
+    aligned line, the count of lines that cover it, the head skip (the
+    bytes of the first line before ``src``) and the byte spans it reads,
+    each 16-byte piece of those lines that lies in the table, the last cut
+    at ``hi`` where the table ends off a piece.  The kernel's arithmetic,
+    for the tests and for ``chip_smoke.py``'s count of lines a miss row."""
+    first = src - src % LINE_BYTES
+    head = src - first
+    n_lines = -(-(head + nbytes) // LINE_BYTES)
+    reads = []
+    for q in range(first, first + n_lines * LINE_BYTES, PIECE_BYTES):
+        if lo <= q < hi:
+            reads.append((q, min(q + PIECE_BYTES, hi)))
+    return {"first": first, "n_lines": n_lines, "head": head, "reads": reads}
 
 
 def _select_ring(row_bytes: int, vec: int) -> tuple[int, int, int]:
@@ -360,22 +415,24 @@ def classify_blocks(
 
 def _launch_blocks(hot, host, indices, positions, row_block, *, modes=None):
     """Launch #2 on validated CUDA operands (the hot table already padded
-    to ``row_block`` rows) and return the output.  ``modes`` (``int32``,
-    one entry per block, on the card) receives the in-kernel
+    to ``row_block`` rows); return the output and whether the launch read
+    its host side by aligned lines (:func:`_takes_lines`).  ``modes``
+    (``int32``, one entry per block, on the card) receives the in-kernel
     classification; the wrapper passes none, chip_smoke.py and the GPU
     tests hold it to :func:`classify_blocks`."""
     if row_block * hot.shape[1] * hot.element_size() >= 2**31:
         raise ValueError(f"a block of {row_block} rows exceeds 2 GiB")
     idx, pos, out, row_bytes, host_ptr, vec, stream = _launch_args(hot, host, indices, positions)
+    lines = _takes_lines(row_bytes, vec, host.is_cuda, host_ptr)
     grid = _grid(-(-idx.shape[0] // row_block), _sm_count(hot.device.index),
-                 _ctas_per_sm(KIND_BLOCKS, vec))
+                 _ctas_per_sm(KIND_LINES if lines else KIND_BLOCKS, vec))
     status = load_library().dci_cached_gather_blocks(
         hot.data_ptr(), host_ptr, idx.data_ptr(), pos.data_ptr(), out.data_ptr(),
         0 if modes is None else modes.data_ptr(), idx.shape[0], row_bytes, hot.shape[0],
-        host.shape[0], row_block, vec, grid, stream,
+        host.shape[0], row_block, vec, int(lines), grid, stream,
     )
     _check_status(status, "dci_cached_gather_blocks launch")
-    return out
+    return out, lines
 
 
 def cached_gather_blocks(
@@ -414,9 +471,11 @@ def cached_gather_blocks(
         )
     if not on_cuda:
         return cached_gather_ref(hot_table, host_table, indices, positions)
-    out = _launch_blocks(hot_table, host_table, indices, positions, row_block)
+    out, lines = _launch_blocks(hot_table, host_table, indices, positions, row_block)
     cached_gather_blocks.launches += 1
+    cached_gather_blocks.line_launches += int(lines)
     return out
 
 
 cached_gather_blocks.launches = 0
+cached_gather_blocks.line_launches = 0

@@ -82,7 +82,7 @@ from repro_torch.core.trace import NULL_TRACER, WAIT_ARGS, resolve_tracer
 from repro_torch.device import resolve_device
 from repro_torch.graph.datasets import SyntheticGraphDataset
 from repro_torch.graph.sampling import pow2_bucket, sample_blocks
-from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK, cached_gather_blocks
 from repro_torch.kernels.sample_layer.kernel import sample_layer
 from repro_torch.models.gnn.models import GNN, init_params
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
@@ -629,7 +629,11 @@ class StreamRuntime:
             raise
 
     def feature(self, ctx):
+        lines = cached_gather_blocks.line_launches
         out = self._feature(ctx)
+        # The gathers of this batch that read long pinned miss rows by
+        # aligned lines (none on the CPU).
+        self.tracer.annotate(line_copies=cached_gather_blocks.line_launches - lines)
         self._done(ctx, "feature", out[0].device)
         return out
 

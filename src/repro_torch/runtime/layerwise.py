@@ -66,7 +66,7 @@ from repro_torch.graph.features import (
     refresh_feature_cache,
 )
 from repro_torch.graph.sampling import pow2_bucket
-from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK
+from repro_torch.kernels.cached_gather.kernel import ROW_BLOCK, cached_gather_blocks
 from repro_torch.models.gnn.models import forward_layer, out_width
 from repro_torch.runtime.gnn_engine import modeled_transfer_seconds
 from repro_torch.runtime.pipeline import PipelinedExecutor, Stage
@@ -441,12 +441,15 @@ def run_layerwise(
 
         def gather_fn(ctx, store=store, chunk_ids=chunk_ids):
             spec = ctx.payload
+            lines = cached_gather_blocks.line_launches
             feats, hit = store.gather(
                 chunk_ids(spec),
                 use_kernel=use_kernel,
                 prefetched=ctx.outputs.get("prefetch"),
                 row_block=row_block,
             )
+            # As the engine's feature stage: gathers that read by aligned lines.
+            tracer.annotate(line_copies=cached_gather_blocks.line_launches - lines)
             return feats, (hit & spec.live).sum()
 
         def prefetch_fn(ctx, store=store, pad_id=pad_id):

@@ -433,13 +433,217 @@ def test_occupancy_kinds_match_the_source():
     from repro_torch.kernels._build import CSRC
 
     src = (CSRC / "cached_gather.cu").read_text()
-    kinds = dict(re.findall(r"case (\d): return reinterpret_cast<const void\*>\((\w+)<V>\)", src))
+    kinds = dict(re.findall(r"case (\d): return reinterpret_cast<const void\*>\((\w+<V[\w, ]*>)\)",
+                            src))
     assert kinds == {
-        str(tk.KIND_ROWS): "gather_rows_kernel",
-        str(tk.KIND_BLOCKS): "gather_blocks_kernel",
-        str(tk.KIND_SELECT): "gather_select_kernel",
+        str(tk.KIND_ROWS): "gather_rows_kernel<V>",
+        str(tk.KIND_BLOCKS): "gather_blocks_kernel<V>",
+        str(tk.KIND_SELECT): "gather_select_kernel<V>",
+        str(tk.KIND_LINES): "gather_blocks_kernel<V, true>",
     }
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+)", src))
     assert int(const["kThreads"]) // 32 == tk.WARPS_PER_CTA
     assert int(const["kUnroll"]) == tk.UNROLL
     assert int(const["kMaxStages"]) == tk.MAX_STAGES
+    assert int(const["kLine"]) == tk.LINE_BYTES and int(const["kPiece"]) == tk.PIECE_BYTES
+
+
+# --------------------------------------------------------------------------
+# #2's aligned-line copy of long pinned miss rows (copy_lines in the .cu).
+
+LINE, PIECE = tk.LINE_BYTES, tk.PIECE_BYTES
+
+
+@pytest.mark.parametrize(
+    "row_bytes,vec,host_on_card,base_mod,lines",
+    [
+        (2408, 8, False, 0, True),  # Reddit's f32 rows, pinned: the cells' case
+        (1204, 4, False, 0, True),  # Reddit's rows in bf16
+        (602, 2, False, 0, True),  # bf16 rows of an odd width
+        (528, 16, False, 0, True),  # 33 vectors of 16 bytes
+        (2408, 8, True, 0, False),  # a host table on the card (the prefetch pack): HBM
+        (2408, 8, False, 8, False),  # a pinned view whose base is off 16 bytes
+        (400, 16, False, 0, False),  # products' rows: one instruction a row already
+        (512, 16, False, 0, False),  # the embedding rows: 32 vectors
+        (256, 8, False, 0, False),  # 32 vectors of 8 bytes
+        (6, 2, False, 0, False),
+    ],
+)
+def test_line_copy_rule_follows_row_length_placement_and_base(row_bytes, vec, host_on_card,
+                                                                base_mod, lines):
+    """#2 reads its host side by aligned lines exactly when the rows are
+    longer than 32 vectors, the host table is pinned host memory and its
+    base is 16-byte aligned."""
+    assert tk._takes_lines(row_bytes, vec, host_on_card, 4096 * 7 + base_mod) == lines
+
+
+def _table(n_rows, row_bytes, base_mod=48):
+    """``(lo, hi)`` of a pinned table of ``n_rows`` rows inside a larger
+    buffer: its base 16-byte aligned and ``base_mod`` bytes past a line."""
+    lo = 64 * LINE + base_mod
+    return lo, lo + n_rows * row_bytes
+
+
+LINE_PLAN_CASES = {
+    # Reddit's rows start at id x 2,408, 104 mod 128: ids 0-15 meet all
+    # sixteen 8-byte offsets within a line (the base adds 48 to each).
+    **{f"offset{i}": (2408, 101, [i], 1) for i in range(16)},
+    "first_row": (2408, 101, [0], 1),  # the table's head, off a line
+    "last_row_odd_end": (2408, 101, [100], 1),  # the table ends 8 bytes off a piece
+    "span_of_8": (2408, 101, [40], 8),  # a mode-2 span
+    "span_to_the_end": (2408, 101, [68], 33),
+    "bf16": (1204, 77, [3], 1),
+    "two_byte_vectors": (602, 77, [76], 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LINE_PLAN_CASES))
+def test_line_plan_reads_whole_lines_inside_the_table(case):
+    """``line_plan``: the first line is the aligned line at or before the
+    range, the head skip the bytes before the range in it, and the count
+    covers the range; the reads are the 16-byte pieces of those lines that
+    lie in the table, so they cover the range, never leave the table, and
+    fill every line except where the table's own ends cut it."""
+    row_bytes, n_rows, (row,), rows = LINE_PLAN_CASES[case]
+    lo, hi = _table(n_rows, row_bytes)
+    src, nbytes = lo + row * row_bytes, rows * row_bytes
+    plan = tk.line_plan(src, nbytes, lo, hi)
+    assert plan["first"] % LINE == 0 and plan["first"] <= src < plan["first"] + LINE
+    assert plan["head"] == src - plan["first"]
+    assert plan["first"] + (plan["n_lines"] - 1) * LINE < src + nbytes
+    assert src + nbytes <= plan["first"] + plan["n_lines"] * LINE
+    assert plan["n_lines"] <= nbytes // LINE + 2
+    read = set()
+    for a, b in plan["reads"]:
+        assert lo <= a < b <= hi and a % PIECE == 0
+        assert b - a == PIECE or b == hi  # only the table's end cuts a piece
+        read.update(range(a, b))
+    assert set(range(src, src + nbytes)) <= read
+    for k in range(plan["n_lines"]):
+        line = range(plan["first"] + k * LINE, plan["first"] + (k + 1) * LINE)
+        assert {x for x in line if lo <= x < hi} <= read  # the line, whole within the table
+
+
+def _copy_lines(mem, out, srcs, dsts, nbytes, lo, hi, vec):
+    """copy_lines as one warp of the kernel runs it, on a byte array:
+    lane s < len(srcs) holds range s.  Returns every byte stored (with its
+    count) and every byte read."""
+    segs = len(srcs)
+    head = [a % LINE for a in srcs] + [0] * (32 - segs)
+    n = [-(-(head[s] + nbytes) // LINE) for s in range(segs)] + [0] * (32 - segs)
+    end = list(np.cumsum(n))
+    total = end[-1]
+    rel = [-head[s] - (end[s] - n[s]) * LINE for s in range(32)]
+    stored, read = np.zeros(out.shape[0], np.int64), []
+    for t0 in range(0, total, 4 * tk.UNROLL):
+        issued = []
+        for u in range(tk.UNROLL):
+            first = t0 + u * 4
+            for lane in range(32):
+                sub = lane // 8
+                s = min(sum(e <= first + sub for e in end), 31)
+                t = first + sub
+                off = rel[s] + t * LINE + (lane % 8) * PIECE
+                if t >= total:
+                    continue
+                q = srcs[s] + off
+                piece = np.zeros(PIECE, np.uint8)
+                if lo <= q < hi:  # load_piece: whole, or its units below hi
+                    for k in range(0, PIECE, vec):
+                        if q + PIECE <= hi or q + k + vec <= hi:
+                            piece[k : k + vec] = mem[q + k : q + k + vec]
+                            read.extend(range(q + k, q + k + vec))
+                issued.append((piece, off, s))
+        for piece, off, s in issued:  # store_piece
+            for k in range(0, PIECE, vec):
+                x = off + k
+                if 0 <= x < nbytes:
+                    out[dsts[s] + x : dsts[s] + x + vec] = piece[k : k + vec]
+                    stored[dsts[s] + x : dsts[s] + x + vec] += 1
+    return stored, read
+
+
+LINE_COPY_CASES = {
+    # (row bytes, vector bytes, table rows, ids, rows a range)
+    "sixteen_offsets": (2408, 8, 101, list(range(16)), 1),
+    "miss_runs": (2408, 8, 101, [3, 4, 5, 6, 7, 8, 9, 10, 11], 1),
+    "random_32": (2408, 8, 101, [int(i) for i in np.random.default_rng(5).integers(0, 101, 32)], 1),
+    "first_and_last_rows": (2408, 8, 101, [0, 1, 99, 100], 1),
+    "span_of_8": (2408, 8, 101, [92], 8),
+    "span_of_33": (2408, 8, 101, [0], 33),
+    "bf16": (1204, 4, 77, [0, 5, 6, 40, 76], 1),
+    "two_byte_vectors": (602, 2, 77, [1, 2, 76], 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LINE_COPY_CASES))
+def test_line_copy_stores_every_byte_once_from_inside_the_table(case):
+    """The warp's line stream (copy_lines' prefix sum, the ballots that
+    find each line's range, the pieces' offsets) stores every byte of every
+    range once, at its place in the output, reads only inside the table,
+    and reads what ``line_plan`` says for each range."""
+    row_bytes, vec, n_rows, ids, rows = LINE_COPY_CASES[case]
+    lo, hi = _table(n_rows, row_bytes)
+    assert lo % PIECE == 0 and hi % PIECE != 0  # every case's table ends off a piece
+    mem = np.random.default_rng(len(ids)).integers(0, 256, hi + 4 * LINE, dtype=np.uint8)
+    nbytes = rows * row_bytes
+    srcs = [lo + i * row_bytes for i in ids]
+    dsts = [j * nbytes for j in range(len(ids))]
+    out = np.zeros(len(ids) * nbytes, np.uint8)
+    stored, read = _copy_lines(mem, out, srcs, dsts, nbytes, lo, hi, vec)
+    assert (stored == 1).all()
+    want = np.concatenate([mem[a : a + nbytes] for a in srcs])
+    np.testing.assert_array_equal(out, want)
+    assert min(read) >= lo and max(read) < hi
+    planned = [x for a in srcs for p, q in tk.line_plan(a, nbytes, lo, hi)["reads"]
+               for x in range(p, q)]
+    assert sorted(read) == sorted(planned)
+
+
+@pytest.mark.parametrize("route", ["sampled", "layerwise"])
+@pytest.mark.parametrize("line_launches", [0, 1])
+def test_gather_spans_count_the_line_copies(monkeypatch, route, line_launches):
+    """The stage span that gathers (``feature`` in the sampled engine,
+    ``gather`` layer-wise) carries ``line_copies``: the launches of #2 in
+    its item that read by aligned lines.  On the CPU no kernel launches,
+    so it is 0; a store whose gather counts one line launch a call (a
+    stand-in for the card's Reddit rows) makes it 1 on every item.  No
+    other span carries it."""
+    import collections
+
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.trace import Tracer
+    from repro_torch.graph.datasets import load_dataset
+    from repro_torch.graph.features import FeatureStore
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+    from repro_torch.runtime.layerwise import run_layerwise
+
+    gather = FeatureStore.gather
+
+    def counted(self, *args, **kwargs):
+        tk.cached_gather_blocks.line_launches += line_launches
+        return gather(self, *args, **kwargs)
+
+    monkeypatch.setattr(FeatureStore, "gather", counted)
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    eng = GNNInferenceEngine(ds, fanouts=(3, 2), batch_size=64, seed=3, device="cpu")
+    eng.prepare("dci", total_cache_bytes=100_000, n_presample=2)
+    tracer = Tracer()
+    if route == "sampled":
+        eng.run(config=EngineConfig(pipeline_depth=2, use_kernel=True, dedup=True),
+                max_batches=3, tracer=tracer)
+        stage = "feature"
+    else:
+        cfg = EngineConfig(mode="layerwise", chunk_size=256, use_kernel=True)
+        run_layerwise(ds, eng.pipeline, list(eng.model.layers), model=eng.model_name,
+                      config=cfg.resolved(eng.pipeline, pipeline_depth=2), tracer=tracer)
+        stage = "gather"
+    by_name = collections.defaultdict(list)
+    for e in tracer.events:
+        if e["ph"] == "X":
+            by_name[e["name"]].append(e.get("args", {}))
+    assert len(by_name[stage]) >= 3
+    assert [a["line_copies"] for a in by_name[stage]] == [line_launches] * len(by_name[stage])
+    for name, args in by_name.items():
+        if name != stage:
+            assert not any("line_copies" in a for a in args), name

@@ -180,7 +180,8 @@ def test_ragged_tails_of_the_persistent_grid(cuda, kind, f, host_on):
         ctas = tk._ctas_per_sm(tk.KIND_SELECT, vec, tk._select_smem(vec, unroll, stages))
     else:
         per_warp = row_block
-        ctas = tk._ctas_per_sm(tk.KIND_BLOCKS, vec)
+        lines = tk._takes_lines(row_bytes, vec, host.is_cuda, tk._host_pointer(host))
+        ctas = tk._ctas_per_sm(tk.KIND_LINES if lines else tk.KIND_BLOCKS, vec)
     n_ctas = tk._sm_count(cuda.index or 0) * ctas
     sizes = {1, per_warp - 1, per_warp, per_warp + 1, 31, 32, 33}
     grids = [n_ctas * (tk.WARPS_PER_CTA - miss_warps) * per_warp]
@@ -273,10 +274,83 @@ def test_blocks_classify_in_kernel(cuda, row_block, dtype, f, host_on):
     want_mode, _ = tk.classify_blocks(idx, pos, h, n, row_block)
     assert want_mode[0] == 1 and want_mode[1] == 2
     modes = torch.full_like(want_mode, -1)
-    out = tk._launch_blocks(hot, host, idx, pos, row_block, modes=modes)
+    out, _ = tk._launch_blocks(hot, host, idx, pos, row_block, modes=modes)
     torch.cuda.synchronize()
     assert torch.equal(out, want) and torch.equal(modes, want_mode)
     assert tk.cached_gather_blocks.launches == before + 1
+
+
+def _line_case(cuda, case):
+    """``(hot, host, idx, pos, row_block, lines)`` of one case of #2's
+    aligned-line copy: ``lines`` says whether the rule takes it."""
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    h, n, f = 40, 101, 602  # 101 rows: the table ends off a 16-byte piece
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    hot = torch.randn((h, f), generator=gen).to(dtype).to(cuda)
+    # The table, a view into a larger pinned buffer: the fewest rows in
+    # that keep its base 16-byte aligned (two rows of 2,408 bytes, four of
+    # 1,204), or one row in, 8 bytes off.
+    row_bytes = f * hot.element_size()
+    start = next(k for k in range(1, 17) if k * row_bytes % 16 == 0)
+    big = torch.randn((n + 2 * start, f), generator=gen).to(dtype).pin_memory()
+    host = big[1 : 1 + n] if case == "base_off_16" else big[start : start + n]
+    row_block = 33 if case == "row_block_33" else tk.ROW_BLOCK
+    if case == "offsets":
+        # Ids 0-15 start at all sixteen 8-byte offsets within a line (each
+        # row starts 104 bytes further along a line than the one before),
+        # each a miss beside a hit, so every block is mixed.
+        idx = torch.arange(16, dtype=torch.int32).repeat_interleave(2)
+        pos = torch.where(torch.arange(32) % 2 == 0, -1, torch.arange(32) % h).to(torch.int32)
+    elif case == "ends":
+        # The table's first and last rows: in mixed blocks, and in spans
+        # that start at row 0 and end at row n - 1.
+        first = torch.arange(row_block, dtype=torch.int32)
+        last = torch.arange(n - row_block, n, dtype=torch.int32)
+        mixed = torch.tensor([0, 5, n - 1, 7, 1, n - 2, 3, 0], dtype=torch.int32)
+        idx = torch.cat([first, last, mixed, mixed.flip(0)])
+        pos = torch.full_like(idx, -1)
+        pos[2 * row_block + 1 :: 3] = torch.arange(pos[2 * row_block + 1 :: 3].numel()) % h
+    else:
+        # Runs of consecutive misses and hits of 1 to 3 blocks, broken runs
+        # and random rows: mixed blocks, all-miss spans, runs that cross
+        # block boundaries.
+        idx, pos = _run_inputs(torch.device("cpu"), 700, h, n, seed=len(case),
+                               max_run=3 * row_block)
+    if case == "device_host":
+        host = host.to(cuda)
+    lines = case not in ("base_off_16", "device_host")
+    return hot, host, idx.to(cuda), pos.to(cuda), row_block, lines
+
+
+LINE_CASES = ["offsets", "miss_runs", "row_block_33", "ends", "bf16", "base_off_16",
+              "device_host"]
+
+
+@pytest.mark.parametrize("case", LINE_CASES)
+def test_blocks_line_copy_matches_ref(cuda, case):
+    """#2 reading long pinned miss rows by aligned lines equals ref.py bit
+    for bit: rows at all sixteen 8-byte offsets within a line, runs of
+    misses across block boundaries, mixed blocks and all-miss spans at
+    row_block 8 and 33, the first and last rows of a table that is a view
+    ending off a line inside a larger pinned buffer, and bf16's 1,204-byte
+    rows; a host view whose base is off 16 bytes and a host table on the
+    card keep the loop by vectors.  ``line_launches`` moves exactly where
+    the rule says, and the in-kernel modes still equal classify_blocks'."""
+    hot, host, idx, pos, row_block, lines = _line_case(cuda, case)
+    want = cached_gather_ref(hot, host, idx, pos)
+    before, line_before = tk.cached_gather_blocks.launches, tk.cached_gather_blocks.line_launches
+    out = tk.cached_gather_blocks(hot, host, idx, pos, row_block=row_block)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert tk.cached_gather_blocks.launches == before + 1
+    assert tk.cached_gather_blocks.line_launches == line_before + int(lines)
+    want_mode, _ = tk.classify_blocks(idx, pos, hot.shape[0], host.shape[0], row_block)
+    modes = torch.full_like(want_mode, -1)
+    out, took = tk._launch_blocks(hot, host, idx, pos, row_block, modes=modes)
+    torch.cuda.synchronize()
+    assert took == lines and torch.equal(out, want) and torch.equal(modes, want_mode)
+    if case in ("miss_runs", "row_block_33", "ends"):
+        assert bool((want_mode == 2).any() and (want_mode == 0).any())
 
 
 def test_blocks_pad_a_short_hot_table_on_the_card(cuda):
