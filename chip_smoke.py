@@ -275,6 +275,25 @@ whose errors is caught:
    without dedup, as phase 20 runs GAT: 3 ``dot_attend`` launches a batch,
    each batch a fused one, the logits of both routes identical.
 
+22. GraphSAGE-LSTM (run after phase 21), at ``sage-lstm-reddit.offline4096``'s
+   shapes (``bench/configs/sage-lstm-reddit.json``, batch 4096 at fan-outs
+   25,10): ``lstm_agg`` at its two layers — layer 0 through an index,
+   45,056 destinations x 25 slots over ``LSTM_TABLE_ROWS`` gate rows by
+   uniform ids; layer 1 in place, 4,096 x 10 — held to ``ref.py`` in
+   float64 on the same inputs (the widest gap within ``GAT_TOL`` of the
+   largest state), layer 0's dense form the same bits as its indexed form;
+   each timed beside ``ref.py``, the input map's SGEMM (over the gate
+   table's rows at layer 0, every slot's row at layer 1), ``torch.nn.LSTM``
+   (cuDNN, float32, TF32 off) over the gathered padded sequence of input
+   rows (its input map over every slot included: the library time, and its
+   last state held to the kernel's) and the bound of
+   ``bench/models/graphsage_lstm.py``'s ``recur_flops`` at float32's 67
+   TFLOP/s and ``recur_bytes`` at HBM3's rate.  Then GraphSAGE-LSTM through
+   ``GNNInferenceEngine`` on the cell's route (kernel, dedup) on Reddit's
+   stand-in with 128 MB of cache, at depth 2 and depth 1: 2 ``lstm_agg``
+   launches a batch, each batch a fused one, the same bits at both depths;
+   the distinct frontier rows a batch (``unique_rows``) are printed.
+
 The script re-executes itself with ``PYTHONHASHSEED=0`` first, so the
 dataset (seeded through ``hash(name)``) is the same graph in every run.
 Bounds use the published peaks of the card ``nvidia-smi`` names
@@ -337,6 +356,13 @@ GAT_TOL = 1e-5
 # scores of up to 512 terms and the online softmax's rescaling), and the
 # engine's batches on the cell's route.
 GT_CONFIG = ROOT / "bench" / "configs" / "gt-products.json"
+# Phase 22, GraphSAGE-LSTM at sage-lstm-reddit.offline4096 (batch 4096 at
+# fan-outs 25,10): lstm_agg held to ref.py within GAT_TOL (float32 sums of
+# 128 terms over 25 dependent steps), layer 0 through an index over
+# LSTM_TABLE_ROWS gate rows (about the distinct frontier rows of the cell's
+# batches), and the engine's batches on the cell's route.
+LSTM_CONFIG = ROOT / "bench" / "configs" / "sage-lstm-reddit.json"
+LSTM_TABLE_ROWS = 104_000
 # The sampler's kernel at the offline cells' last layer (batch 4096 at
 # FANOUTS: 270,336 seeds x 15 draws): on phase 3's prepared ogbn-products
 # graph (its adjacency cache active) and on Reddit's stand-in
@@ -351,7 +377,7 @@ REDDIT_CONFIG = ROOT / "bench" / "configs" / "gcn-reddit.json"
 SAMPLER_SEED_BYTES = 4 + 8 + 4 + 4
 SAMPLER_DRAW_BYTES = 8 + 4 + 4 + 1 + 4
 KERNEL_SOURCES = ("cached_gather", "seg_agg", "flash_attention", "gat_attend", "sample_layer",
-                  "dot_attend")
+                  "dot_attend", "lstm_agg")
 # Gemma-2 27B attention (src/repro/configs/gemma2_27b.py): prefill and decode.
 GEMMA = dict(b=1, hq=32, hkv=16, d=128, s=4096, window=4096, softcap=50.0)
 # Phase 15, LM serving (src/repro/configs/gemma_2b.py at full size, bf16):
@@ -443,6 +469,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
     "gat_attend": "none: JAX has no GAT",
     "dot_attend": "none: JAX has no Graph Transformer",
+    "lstm_agg": "none: JAX has no LSTM aggregator",
     "sample_layer": "none: src/repro/graph/sampling.py samples in jnp ops, fused by XLA",
 }
 SOURCES = {
@@ -454,6 +481,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gat_attend": "src/repro_torch/csrc/gat_attend.cu",
     "dot_attend": "src/repro_torch/csrc/dot_attend.cu",
+    "lstm_agg": "src/repro_torch/csrc/lstm_agg.cu",
     "sample_layer": "src/repro_torch/csrc/sample_layer.cu",
 }
 # Published dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s and
@@ -536,6 +564,7 @@ def build_phase() -> dict:
     from repro_torch.kernels.dot_attend import kernel as da
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.gat_attend import kernel as ga
+    from repro_torch.kernels.lstm_agg import kernel as la
     from repro_torch.kernels.sample_layer import kernel as sl
     from repro_torch.kernels.seg_agg import kernel as sa
     from repro_torch.runtime.gnn_engine import HBM3_BW, PCIE5_BW
@@ -546,7 +575,7 @@ def build_phase() -> dict:
     # One nvcc per source, all started together; each call raises on failure.
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(build_library, names)))
-    for mod in (cg, sa, fa, ga, sl, da):
+    for mod in (cg, sa, fa, ga, sl, da, la):
         mod.load_library()
     build_s = time.perf_counter() - t0
     log(f"built {len(names)} libraries in {build_s:.1f} s (in parallel); ptxas -v, per kernel:")
@@ -1736,6 +1765,147 @@ def gt_phase(ds, hbm: float) -> dict:
 
     return {"layers": layers,
             **attention_engine_runs(ds, "graph_transformer", da.dot_attend, config, widths[-1])}
+
+
+def lstm_phase(hbm: float) -> dict:
+    """Phase 22: lstm_agg at the GraphSAGE-LSTM cell's two layers against
+    ref.py and timed beside the input map, cuDNN's LSTM and the bound, then
+    GraphSAGE-LSTM through the engine on Reddit's stand-in with its launches
+    counted."""
+    import numpy as np
+    import torch
+
+    from bench import models as bench_models
+    from bench.data import make_graph
+    from bench.drive import _dataset
+    from bench.flops import FP32_PEAK
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.kernels.lstm_agg import kernel as la
+    from repro_torch.kernels.lstm_agg.ref import lstm_agg_ref
+    from repro_torch.runtime.gnn_engine import GNNInferenceEngine
+
+    config = json.loads(LSTM_CONFIG.read_text())
+    model = bench_models.load("graphsage_lstm")
+    widths = model.dims(config)
+    fanouts = tuple(config["fanouts"])
+    hidden = config["lstm_hidden"]
+    phase(f"22. GraphSAGE-LSTM: lstm_agg at sage-lstm-reddit.offline4096's layers, then the "
+          f"engine (batch {GAT_BATCH}, fanouts {fanouts})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    layers = []
+    for layer, fo in enumerate(fanouts):  # layer 0 reads the deepest frontier
+        f = widths[layer]
+        n = GAT_BATCH * int(np.prod([1 + k for k in fanouts[layer + 1:]]))
+        indexed = layer == 0
+        table_rows = LSTM_TABLE_ROWS if indexed else n * fo
+        x = torch.randn((table_rows, f), generator=gen, device="cuda")
+        idx = (torch.randint(0, table_rows, (n * (1 + fo),), generator=gen, device="cuda",
+                             dtype=torch.int32) if indexed else None)
+        distinct = int(torch.unique(idx[n:]).numel()) if indexed else table_rows
+        w_ih = torch.randn((f, 4 * hidden), generator=gen, device="cuda") / f ** 0.5
+        w_hh = torch.randn((hidden, 4 * hidden), generator=gen, device="cuda") / hidden ** 0.5
+        b = torch.randn((4 * hidden,), generator=gen, device="cuda") / f ** 0.5
+        g = torch.addmm(b, x, w_ih)
+        kw = dict(num_dst=n, fanout=fo)
+        label = f"layer {layer}"
+
+        got = la.lstm_agg(g, idx, w_hh, **kw)
+        exact = lstm_agg_ref(g.double(), idx, w_hh.double(), **kw)
+        err = float((got.double() - exact).abs().max())
+        gap = err / float(exact.abs().max())
+        del exact
+        if not gap <= GAT_TOL:
+            raise AssertionError(f"lstm_agg ({label}): {gap:.3g} of the largest state from "
+                                 f"ref.py in float64, over {GAT_TOL}")
+        if not torch.equal(la.lstm_agg(g, idx, w_hh, **kw), got):
+            raise AssertionError(f"lstm_agg ({label}): a second run gave other bits")
+
+        # cuDNN's LSTM over the gathered sequence of input rows: torch's gate
+        # order is (i, f, g, o) and it adds no forget bias, so the maps are
+        # permuted and the 1 rides in bias_hh.
+        perm = torch.cat([torch.arange(k * hidden, (k + 1) * hidden, device="cuda")
+                          for k in (0, 2, 1, 3)])
+        lstm = torch.nn.LSTM(f, hidden, batch_first=True, device="cuda")
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(w_ih[:, perm].T)
+            lstm.weight_hh_l0.copy_(w_hh[:, perm].T)
+            lstm.bias_ih_l0.copy_(b[perm])
+            lstm.bias_hh_l0.zero_()
+            lstm.bias_hh_l0[hidden:2 * hidden] = 1.0
+        seq = (x if idx is None else x[idx[n:].long()]).view(n, fo, f)
+
+        def library():
+            with torch.no_grad():
+                return lstm(seq)[1][0][0]
+
+        library_gap = float((library() - got).abs().max() / got.abs().max())
+        flops = model.recur_flops(n, n * fo, config=config)
+        nbytes = model.recur_bytes(n, n * fo, config=config, distinct_rows=distinct,
+                                   indexed=indexed)
+        bound_s = max(flops / FP32_PEAK, nbytes / hbm)
+        row = dict(label=label, shape=[n, fo, f], indexed=indexed, distinct_rows=distinct,
+                   max_abs_err=err, max_rel_gap=gap, library_rel_gap=library_gap,
+                   ms=cuda_ms(lambda: la.lstm_agg(g, idx, w_hh, **kw), reps=10),
+                   plain_ms=cuda_ms(lambda: lstm_agg_ref(g, idx, w_hh, **kw), reps=3),
+                   input_map_ms=cuda_ms(lambda: torch.addmm(b, x, w_ih), reps=10),
+                   library_ms=cuda_ms(library, reps=3),
+                   flops=flops, bytes=nbytes, bound_ms=1e3 * bound_s,
+                   bound_by="operations" if flops / FP32_PEAK >= nbytes / hbm else "bytes")
+        form = "through the index" if indexed else "in place"
+        log(f"  {label} [{n} x {fo}, F {f}, H {hidden}] {form}: kernel {row['ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} ({flops} FLOP, {nbytes} B, "
+            f"{distinct} distinct rows)  ref.py {row['plain_ms']:.4f} ms  input map "
+            f"{row['input_map_ms']:.4f} ms ({table_rows} rows)  cuDNN LSTM over the gathered "
+            f"sequence {row['library_ms']:.4f} ms; gap to ref.py in float64 {gap:.3g} of the "
+            f"largest state, cuDNN to the kernel {library_gap:.3g}")
+        if indexed:  # the dense form of the same slots: the same bits
+            dense = g[idx[n:].long()]
+            if not torch.equal(la.lstm_agg(dense, None, w_hh, **kw), got):
+                raise AssertionError(f"lstm_agg ({label}): dense form differs from indexed form")
+            row["dense_ms"] = cuda_ms(lambda: la.lstm_agg(dense, None, w_hh, **kw), reps=10)
+            log(f"  {label} dense form (no index): kernel {row['dense_ms']:.4f} ms, the same bits")
+            del dense
+        del x, g, got, seq, lstm, idx
+        torch.cuda.empty_cache()
+        layers.append(row)
+
+    data = make_graph(config["dataset"], SEED, device="cuda")
+    params = model.init(config, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    eng = GNNInferenceEngine(_dataset(config, data), model="graphsage_lstm", fanouts=fanouts,
+                             batch_size=GAT_BATCH, seed=SEED, params=params, device="cuda")
+    t0 = time.perf_counter()
+    eng.prepare(config["policy"], config=EngineConfig(),
+                total_cache_bytes=int(config["cache_mb"] * 1e6),
+                n_presample=config["n_presample"])
+    prepare_s = time.perf_counter() - t0
+    batches = min(MAIN_BATCHES, len(data.test_idx) // GAT_BATCH)
+    runs, outputs, launches = {}, {}, 0
+    for label, depth in (("kernel_dedup_d2", 2), ("kernel_dedup_d1", 1)):
+        cfg = EngineConfig(use_kernel=True, dedup=True, pipeline_depth=depth)
+        la.lstm_agg.launches = 0
+        rep = eng.run(config=cfg, max_batches=batches, collect_outputs=True)
+        count = la.lstm_agg.launches
+        if count != len(fanouts) * (batches + 1) or rep.fused_batches != batches:
+            raise AssertionError(f"graphsage_lstm {label}: lstm_agg launched {count} times, "
+                                 f"fused_batches {rep.fused_batches}, for {batches} batches "
+                                 f"and a warm-up")
+        out = np.stack(eng.last_outputs)
+        if out.shape != (batches, GAT_BATCH, widths[-1]) or not np.isfinite(out).all():
+            raise AssertionError(f"graphsage_lstm {label}: logits of shape {out.shape}, "
+                                 f"finite={np.isfinite(out).all()}")
+        launches += count
+        outputs[label] = out
+        runs[label] = dict(rep.summary(), lstm_agg_launches=count)
+        log(f"  engine {label}: {batches} batches, lstm_agg {count} launches, fused_batches "
+            f"{rep.fused_batches}, distinct rows a batch {rep.unique_rows / batches:.0f}, "
+            f"compute {rep.compute_seconds:.4f} s, total {rep.total_seconds:.4f} s")
+    if not np.array_equal(outputs["kernel_dedup_d2"], outputs["kernel_dedup_d1"]):
+        raise AssertionError("graphsage_lstm: logits at depth 2 differ from those at depth 1")
+    log(f"  logits identical at depth 1 and 2; prepare {prepare_s:.1f} s")
+    del eng, data
+    return {"layers": layers, "runs": runs, "launches": launches, "prepare_s": prepare_s}
 
 
 def attention_engine_runs(ds, model: str, kernel, config: dict, classes: int) -> dict:
@@ -4219,6 +4389,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gt = gt_phase(ds, peaks[1])
     torch.cuda.empty_cache()
+    lstm = lstm_phase(peaks[1])
+    torch.cuda.empty_cache()
     cli = cli_phase()
     baselines = baselines_phase(ds, eng)
     layerwise = layerwise_phase(ds, eng)
@@ -4282,6 +4454,14 @@ def main() -> int:
            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": r["library_ms"]}
           for r in gt["layers"]),
+        # One row per layer of the GraphSAGE-LSTM cell; launches: phase 22's
+        # engine runs.  library_ms: cuDNN's LSTM with its input map over
+        # every slot (the kernel's input map is a separate SGEMM).
+        *({"name": "lstm_agg", "route": "cuda", "source": SOURCES["lstm_agg"],
+           "replaces": REPLACES["lstm_agg"], "case": r["label"], "launches": lstm["launches"],
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+           "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+          for r in lstm["layers"]),
         # One row per offline cell's last sampled layer; launches: phase 8's
         # routes.  No library call computes the same function.
         *({"name": "sample_layer", "route": "cuda", "source": SOURCES["sample_layer"],
@@ -4308,7 +4488,7 @@ def main() -> int:
         "device": device, "build": build, "setup": setup, "kernel_rows": rows,
         "split": split, "lines": lines, "feature_stage": feature_stage, "seg_agg": seg_row, "attention": att_rows,
         "ops_launches": ops_launches, "main_path": main_path, "sampler": sampler, "gat": gat,
-        "gt": gt,
+        "gt": gt, "lstm": lstm,
         "baselines": baselines,
         "layerwise": layerwise, "serving": serving, "refresh": refresh, "sharded": sharded,
         "lm": lm, "ssm": ssm, "encdec": encdec, "training": training, "dryrun": dry,

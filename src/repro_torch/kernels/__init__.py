@@ -21,6 +21,10 @@ live in ``src/repro_torch/csrc/`` and are built at first use
                     sampled layer's neighbour rows, scored by each
                     destination's query folded through the key maps (no
                     reference counterpart, so no ``ops.py``)
+  lstm_agg/         GraphSAGE-LSTM's recurrence over each destination's sampled
+                    neighbours in draw order, from gate rows read through the
+                    inverse map; h and c stay on chip (no reference
+                    counterpart, so no ``ops.py``)
   sample_layer/     one layer of DCI's neighbour sampling: slot draws, the
                     adjacency cache's hit test, the winning list's read and
                     the frontier's tail in one launch (the reference samples

@@ -1,6 +1,7 @@
 """GraphSAGE / GCN layers over padded sampled blocks (paper Table III), the
-heads' maps of a GAT layer, and the value maps, skip, gate and LayerNorm of
-a Graph Transformer layer.
+heads' maps of a GAT layer, the value maps, skip, gate and LayerNorm of a
+Graph Transformer layer, and the maps, L2 norm and output map of a
+GraphSAGE-LSTM layer.
 
 A block layer's input is a feature matrix over frontier ``l+1`` with the
 ``[self | neighbors]`` layout produced by ``sample_blocks``; the layer
@@ -9,7 +10,8 @@ sampling makes neighborhoods dense ``(S, fanout, F)`` tensors, so
 aggregation is a plain reshape + reduction, done inline as in the
 reference.  Weights keep the reference's ``[in, out]`` layout.  A GAT
 layer's attention is a kernel of its own (``kernels/gat_attend``), as is a
-Graph Transformer layer's (``kernels/dot_attend``); their maps follow here.
+Graph Transformer layer's (``kernels/dot_attend``) and a GraphSAGE-LSTM
+layer's recurrence (``kernels/lstm_agg``); their maps follow here.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "gt_apply",
     "gt_gate",
     "head_maps",
+    "lstm_combine",
     "sage_apply",
     "sage_layer",
     "split_frontier",
@@ -146,4 +149,19 @@ def gt_gate(
     if "ln_w" in params:
         out = torch.nn.functional.layer_norm(out, (d,), params["ln_w"], params["ln_b"],
                                              eps=LAYER_NORM_EPS)
+    return out
+
+
+def lstm_combine(
+    params: Mapping[str, torch.Tensor], self_h: torch.Tensor, h_nbr: torch.Tensor
+) -> torch.Tensor:
+    """GraphSAGE-LSTM's maps: the self map of the destinations' own rows and
+    the neighbour map of the LSTM's last hidden states, concatenated,
+    ``[self_h w_self ; h_nbr w_nbr]`` (no bias).  On the last layer (the one
+    with ``w_pred``) each row is then L2-normalised and mapped to the logits
+    by ``w_pred`` and ``b_pred``."""
+    out = torch.cat([self_h @ params["w_self"], h_nbr @ params["w_nbr"]], dim=1)
+    if "w_pred" in params:
+        out = torch.addmm(params["b_pred"], torch.nn.functional.normalize(out, dim=1),
+                          params["w_pred"])
     return out

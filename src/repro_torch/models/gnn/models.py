@@ -45,6 +45,21 @@ beta_i) h_i'`` and, on a hidden layer, LayerNorm follow
 first would map every neighbour position's row twice: about 800 GFLOP a
 batch against 175 at batch 4096 and fan-outs 15,10,5, and a ``[positions,
 H*D]`` key and value tensor at layer 0 (4.1 M x 512 each).
+
+GraphSAGE with the LSTM aggregator (Hamilton et al., NeurIPS 2017,
+arXiv:1706.02216; the authors' ``graphsage_seq``: ``SeqAggregator`` over
+TF's ``BasicLSTMCell``) at its published widths: each layer runs an LSTM of
+``LSTM_HIDDEN`` units over a destination's sampled neighbours in draw order
+and concatenates the self map of the destination's row with the neighbour
+map of the last hidden state, ``[x_i W_self ; h_S W_nbr]`` (no bias);
+ReLU between layers; after the last, the L2 norm and the output map
+``W_pred``, ``b_pred``.  The recurrence depends on the neighbours' order,
+so the input map cannot move behind the aggregation: one SGEMM maps the
+layer's rows to gate rows ``x W_ih + b`` (at a sampled layer 0 on a card,
+the frontier's distinct rows alone), and
+:func:`~repro_torch.kernels.lstm_agg.kernel.lstm_agg` runs the steps,
+reading the gate rows through the inverse map
+(:func:`~repro_torch.models.gnn.layers.lstm_combine` then maps).
 """
 
 from __future__ import annotations
@@ -58,6 +73,8 @@ from torch import nn
 from repro_torch.core.trace import NULL_TRACER
 from repro_torch.kernels.dot_attend.kernel import dot_attend
 from repro_torch.kernels.gat_attend.kernel import gat_attend
+from repro_torch.kernels.lstm_agg.kernel import lstm_agg
+from repro_torch.kernels.lstm_agg.ref import lstm_cell
 from repro_torch.kernels.seg_agg.kernel import seg_agg_indexed
 from repro_torch.models.gnn.layers import (
     gat_apply,
@@ -65,6 +82,7 @@ from repro_torch.models.gnn.layers import (
     gcn_layer,
     gt_apply,
     gt_gate,
+    lstm_combine,
     sage_apply,
     sage_layer,
 )
@@ -76,6 +94,7 @@ __all__ = [
     "GNN",
     "GT_HEADS",
     "GT_HEAD_DIM",
+    "LSTM_HIDDEN",
     "MODELS",
     "NEGATIVE_SLOPE",
     "forward",
@@ -85,7 +104,7 @@ __all__ = [
     "params_from_jax",
 ]
 
-MODELS = ("graphsage", "gcn", "gat", "graph_transformer")
+MODELS = ("graphsage", "gcn", "gat", "graph_transformer", "graphsage_lstm")
 
 # GAT's inductive model (§3.3): heads of each hidden layer and of the
 # output layer, the hidden heads' width, and LeakyReLU's slope in the scores.
@@ -98,6 +117,8 @@ NEGATIVE_SLOPE = 0.2
 # heads concatenated, as PyG's ``TransformerConv(128, heads=4)``).
 GT_HEADS = 4
 GT_HEAD_DIM = 128
+# GraphSAGE-LSTM's hidden units (the authors' ``model_size`` "small").
+LSTM_HIDDEN = 128
 
 
 def _full_fp32() -> None:
@@ -137,13 +158,25 @@ def init_params(
     ``[out]``, drawn in that order: maps and biases normal scaled by
     ``1/sqrt(fan-in)``, ``ln_w`` ``1 + 0.1 * normal``, ``ln_b`` ``0.1 *
     normal``, none of them zero (``bench/models/graph_transformer.py``
-    draws the same)."""
+    draws the same).
+
+    GraphSAGE-LSTM: an LSTM of ``LSTM_HIDDEN`` units and maps ``hidden``
+    wide, concatenated to ``2 * hidden`` a layer; a layer holds the input
+    map ``w_ih [in, 4L]``, the recurrent map ``w_hh [L, 4L]``, the cell's
+    bias ``b_lstm [4L]`` (gates ``i, j, f, o``), the self map ``w_self [in,
+    hidden]`` and the neighbour map ``w_nbr [L, hidden]``, and the last
+    layer the output map ``w_pred [2 * hidden, num_classes]`` and ``b_pred``,
+    drawn in that order, normal and scaled by ``1/sqrt(fan-in)`` (a bias by
+    its map's), none of them zero (``bench/models/graphsage_lstm.py`` draws
+    the same)."""
     if model not in MODELS:
         raise ValueError(f"unknown GNN model {model!r}")
     if model == "gat":
         return _init_gat(generator, in_dim, num_classes, n_layers, device)
     if model == "graph_transformer":
         return _init_gt(generator, in_dim, num_classes, n_layers, device)
+    if model == "graphsage_lstm":
+        return _init_lstm(generator, in_dim, num_classes, hidden, n_layers, device)
     dims = [in_dim] + [hidden] * (n_layers - 1) + [num_classes]
     params = []
     for i in range(n_layers):
@@ -213,9 +246,36 @@ def _init_gt(generator, in_dim, num_classes, n_layers, device):
     return params
 
 
+def _init_lstm(generator, in_dim, num_classes, hidden, n_layers, device):
+    def normal(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=generator.device)
+        return (w / float(np.sqrt(fan_in))).to(device)
+
+    params, d_in, gates = [], in_dim, 4 * LSTM_HIDDEN
+    for i in range(n_layers):
+        layer = {
+            "w_ih": normal((d_in, gates), d_in),
+            "w_hh": normal((LSTM_HIDDEN, gates), LSTM_HIDDEN),
+            "b_lstm": normal((gates,), d_in),
+            "w_self": normal((d_in, hidden), d_in),
+            "w_nbr": normal((LSTM_HIDDEN, hidden), LSTM_HIDDEN),
+        }
+        if i == n_layers - 1:
+            layer["w_pred"] = normal((2 * hidden, num_classes), 2 * hidden)
+            layer["b_pred"] = normal((num_classes,), 2 * hidden)
+        params.append(layer)
+        d_in = 2 * hidden
+    return params
+
+
 def out_width(layer_params: Mapping[str, torch.Tensor]) -> int:
     """A layer's output width, for every model: its bias's (the Graph
-    Transformer's skip bias ``b_r``)."""
+    Transformer's skip bias ``b_r``; GraphSAGE-LSTM's output bias
+    ``b_pred``, or on a hidden layer its two maps' widths)."""
+    if "b_pred" in layer_params:
+        return int(layer_params["b_pred"].shape[0])
+    if "w_ih" in layer_params:
+        return 2 * int(layer_params["w_self"].shape[1])
     return int(layer_params["b_r" if "b_r" in layer_params else "b"].shape[0])
 
 
@@ -237,6 +297,7 @@ def forward(
     model: str,
     fanouts: tuple[int, ...],
     inverse_index: torch.Tensor | None = None,
+    num_rows: int | None = None,
     tracer=NULL_TRACER,
 ) -> torch.Tensor:
     """Run the GNN over one sampled block.
@@ -246,7 +307,8 @@ def forward(
     ``inverse_index`` switches to the unique-frontier form: ``input_feats``
     then holds one row per DISTINCT input node (possibly pow2-padded) and
     ``inverse_index`` (int32) maps the ``[self | neighbors]`` layout onto
-    them.  Layer 0 reads its rows through the index inside its
+    them; ``num_rows``, where given, counts the live rows (the rest are pad
+    no index names, and no layer reads them).  Layer 0 reads its rows through the index inside its
     self-and-fanout sum (:func:`~repro_torch.kernels.seg_agg.kernel.seg_agg_indexed`;
     GAT's in its attention, :func:`~repro_torch.kernels.gat_attend.kernel.gat_attend`):
     one kernel on a card, so the duplicate rows are never written; on the
@@ -255,16 +317,24 @@ def forward(
     path.  The Graph Transformer's attention,
     :func:`~repro_torch.kernels.dot_attend.kernel.dot_attend`, reads them
     the same way, and its queries and skip read the destinations' own rows
-    as ``input_feats[inverse_index[:seeds]]``.  ``tracer`` records each GAT
-    layer's ``attend`` and ``project`` spans, and each Graph Transformer
-    layer's ``query``, ``attend``, ``project`` and ``gate`` spans, on a
-    lane of their own, ``model``."""
+    as ``input_feats[inverse_index[:seeds]]``.  GraphSAGE-LSTM maps the
+    live rows to gate rows and its recurrence,
+    :func:`~repro_torch.kernels.lstm_agg.kernel.lstm_agg`, reads them the
+    same way; on the CPU its layer 0 first reads every position's row
+    through the index, as the reference's dense layout, so its logits are
+    the same bits with and without dedup.  ``tracer`` records each GAT
+    layer's ``attend`` and ``project`` spans, each Graph Transformer
+    layer's ``query``, ``attend``, ``project`` and ``gate`` spans, and each
+    GraphSAGE-LSTM layer's ``input-map``, ``recur`` and ``combine`` spans,
+    on a lane of their own, ``model``."""
     _full_fp32()
     rev = tuple(reversed(fanouts))  # expansion order used by sample_blocks
     mult = 1
     for f in rev:
         mult *= 1 + f
     positions = input_feats.shape[0] if inverse_index is None else inverse_index.shape[0]
+    if num_rows is not None and inverse_index is not None:
+        input_feats = input_feats[:num_rows]
     num_seeds = positions // mult
 
     sizes = [num_seeds]
@@ -272,9 +342,8 @@ def forward(
         sizes.append(sizes[-1] * (1 + f))
 
     n_layers = len(fanouts)
-    if model in ("gat", "graph_transformer"):
-        layer_fn, act = ((_gat_layer, torch.nn.functional.elu) if model == "gat"
-                         else (_gt_layer, torch.nn.functional.relu))
+    if model in _ROW_LAYERS:
+        layer_fn, act = _ROW_LAYERS[model]
         h, index = input_feats, inverse_index
         for li, l in enumerate(range(n_layers - 1, -1, -1)):
             h = layer_fn(params[li], h, index, sizes[l], rev[l], layer=li, tracer=tracer)
@@ -344,12 +413,12 @@ def _gat_layer(
         return gat_apply(layer_params, att, self_h)
 
 
-def _span_args(tracer, layer: int, num_dst: int, fanout: int, index) -> dict | None:
+def _span_args(tracer, layer: int, num_dst: int, fanout: int, index, **more) -> dict | None:
     """The ``model`` lane's span args of one layer (None when untraced)."""
     if not tracer.enabled:
         return None
     return {"layer": layer, "rows": num_dst, "positions": num_dst * (1 + fanout),
-            "indexed": index is not None}
+            "indexed": index is not None, **more}
 
 
 def _gt_query(layer_params: Mapping[str, torch.Tensor], self_h: torch.Tensor) -> torch.Tensor:
@@ -396,6 +465,45 @@ def _gt_layer(
         return gt_gate(layer_params, h_att, skip)
 
 
+def _lstm_layer(
+    layer_params: Mapping[str, torch.Tensor],
+    rows: torch.Tensor,
+    index: torch.Tensor | None,
+    num_dst: int,
+    fanout: int,
+    *,
+    layer: int,
+    tracer,
+) -> torch.Tensor:
+    """One GraphSAGE-LSTM layer over a sampled block, reading ``rows``
+    through ``index`` (or in place): the input map of the rows the
+    recurrence reads (every live row under the index, the neighbour
+    positions' in place), the recurrence, then the self and neighbour maps
+    (:func:`~repro_torch.models.gnn.layers.lstm_combine`)."""
+    args = _span_args(tracer, layer, num_dst, fanout, index, steps=fanout)
+    with tracer.span("input-map", lane="model", args=args):
+        if index is not None and not rows.is_cuda:
+            # The plain route maps every position's row, as the dense layout
+            # does: the same bits with and without dedup.
+            rows, index = rows[index.to(torch.int64)], None
+        self_h = rows[:num_dst] if index is None else rows[index[:num_dst].to(torch.int64)]
+        g = torch.addmm(layer_params["b_lstm"], rows if index is not None else rows[num_dst:],
+                        layer_params["w_ih"])
+    with tracer.span("recur", lane="model", args=args):
+        h = lstm_agg(g, index, layer_params["w_hh"], num_dst=num_dst, fanout=fanout)
+    with tracer.span("combine", lane="model", args=args):
+        return lstm_combine(layer_params, self_h, h)
+
+
+# The models whose layers read their rows themselves: the layer and the
+# activation between layers.
+_ROW_LAYERS = {
+    "gat": (_gat_layer, torch.nn.functional.elu),
+    "graph_transformer": (_gt_layer, torch.nn.functional.relu),
+    "graphsage_lstm": (_lstm_layer, torch.nn.functional.relu),
+}
+
+
 def forward_layer(
     layer_params: Mapping[str, torch.Tensor],
     self_feats: torch.Tensor,
@@ -433,6 +541,13 @@ def forward_layer(
     layer.  A node with no in-edge attends to nothing: its attention output
     is 0 (PyG's empty sum), and the gate mixes it with the skip.
 
+    GraphSAGE-LSTM runs its LSTM over each node's in-edges in CSC order (a
+    multi-edge enters the sequence as often as it appears), then the maps
+    as in the sampled layer; a node with no in-edge has ``h = 0``.  The
+    nodes go longest sequence first, so the nodes still running at a step
+    are a prefix: a step is one product over them, and the number of steps
+    is the largest in-degree of the chunk.
+
     ``segment_ids`` must be sorted (``plan_chunks`` gives them so): the
     aggregate is ``torch.segment_reduce`` over segment lengths, which adds
     each segment's rows in order, in one thread per output element — the
@@ -454,6 +569,9 @@ def forward_layer(
         return torch.nn.functional.elu(h) if relu else h
     if model == "graph_transformer":
         h = _gt_exact(layer_params, self_feats, nbr_feats, segment_ids, num_dst, levels)
+        return torch.relu(h) if relu else h
+    if model == "graphsage_lstm":
+        h = _lstm_exact(layer_params, self_feats, nbr_feats, degrees, num_dst)
         return torch.relu(h) if relu else h
     agg = _segments(nbr_feats, "sum", levels)[:num_dst]
     if model == "graphsage":
@@ -512,16 +630,38 @@ def _gt_exact(layer_params, self_feats, nbr_feats, segment_ids, num_dst, levels)
     return gt_gate(layer_params, h_att, skip)
 
 
+def _lstm_exact(layer_params, self_feats, nbr_feats, degrees, num_dst):
+    """A GraphSAGE-LSTM layer over exact in-neighbourhoods (see
+    :func:`forward_layer`)."""
+    w_hh = layer_params["w_hh"]
+    deg = degrees[:num_dst].to(torch.int64)
+    order = torch.sort(deg, descending=True, stable=True).indices
+    first = (torch.cumsum(deg, 0) - deg)[order]  # each node's first in-edge row
+    deg_host = deg[order].cpu().numpy()
+    # live[t]: the nodes with more than t in-edges, a prefix of ``order``.
+    live = np.searchsorted(-deg_host, -np.arange(deg_host[0] if num_dst else 0), "left")
+    g = torch.addmm(layer_params["b_lstm"], nbr_feats[:int(deg_host.sum())], layer_params["w_ih"])
+    h = g.new_zeros((num_dst, w_hh.shape[0]))
+    c = torch.zeros_like(h)
+    for t, n in enumerate(live.tolist()):
+        z = g[first[:n] + t]
+        h[:n], c[:n] = lstm_cell(z if t == 0 else z.addmm_(h[:n], w_hh), None if t == 0 else c[:n])
+    out = torch.empty_like(h)
+    out[order] = h
+    return lstm_combine(layer_params, self_feats, out)
+
+
 class GNN(nn.Module):
-    """GraphSAGE, GCN, GAT or the Graph Transformer over sampled blocks,
-    for inference.
+    """GraphSAGE, GCN, GAT, the Graph Transformer or GraphSAGE-LSTM over
+    sampled blocks, for inference.
 
     Holds one ``ParameterDict`` per layer with the reference's ``[in,
     out]`` weights (no gradients: the system only serves).
     ``fused_forwards`` counts the forwards whose layer 0 ran in one kernel
-    (``seg_agg_indexed``, GAT's ``gat_attend`` or the Graph Transformer's
-    ``dot_attend``), reading its rows through the inverse map where there
-    is one: every forward on a card, none on the CPU."""
+    (``seg_agg_indexed``, GAT's ``gat_attend``, the Graph Transformer's
+    ``dot_attend`` or GraphSAGE-LSTM's ``lstm_agg``), reading its rows
+    through the inverse map where there is one: every forward on a card,
+    none on the CPU."""
 
     def __init__(
         self,
@@ -548,11 +688,12 @@ class GNN(nn.Module):
         input_feats: torch.Tensor,
         inverse_index: torch.Tensor | None = None,
         *,
+        num_rows: int | None = None,
         tracer=NULL_TRACER,
     ) -> torch.Tensor:
         # The kernel the model's layer 0 runs in, looked up at each call.
-        kernel = {"gat": gat_attend, "graph_transformer": dot_attend}.get(self.model,
-                                                                          seg_agg_indexed)
+        kernel = {"gat": gat_attend, "graph_transformer": dot_attend,
+                  "graphsage_lstm": lstm_agg}.get(self.model, seg_agg_indexed)
         launches = kernel.launches
         out = forward(
             list(self.layers),
@@ -560,6 +701,7 @@ class GNN(nn.Module):
             model=self.model,
             fanouts=self.fanouts,
             inverse_index=inverse_index,
+            num_rows=num_rows,
             tracer=tracer,
         )
         self.fused_forwards += kernel.launches > launches

@@ -684,10 +684,13 @@ class StreamRuntime:
 
     def compute(self, ctx):
         feats = ctx.outputs["feature"][0]
-        inverse = self._dedup_view(ctx)[0].inverse if self.dedup else None
+        inverse = num_rows = None
+        if self.dedup:
+            dd, num_rows, _, _ = self._dedup_view(ctx)
+            inverse = dd.inverse
         fused = self.model.fused_forwards
         with torch.inference_mode():
-            out = self.model(feats, inverse_index=inverse, tracer=self.tracer)
+            out = self.model(feats, inverse_index=inverse, num_rows=num_rows, tracer=self.tracer)
         self.fused_batches += self.model.fused_forwards - fused
         if self._on_streams(ctx):
             self._stage_for_record(ctx, out)

@@ -6,7 +6,7 @@ sampling stream, every stage hands retire the CUDA event it recorded, and
 ``record`` reads the counts and logits from pinned buffers.  These tests
 hold that route to the serial one's bits (depth 1, a whole-device
 synchronize at every stage) across dedup x use_kernel x prefetch for
-GraphSAGE, GCN and GAT; an online refresh between batches to the
+GraphSAGE, GCN, GAT and GraphSAGE-LSTM; an online refresh between batches to the
 per-epoch counts of the same depth drained on the whole device; and its
 trace to no whole-device wait at all.  Run on the H100:
 
@@ -45,8 +45,8 @@ def cuda():
 def _engine(cuda, model):
     ds = load_dataset("ogbn-products", scale=0.002, seed=0)
     params = None
-    if model == "gat":
-        params = gm.init_params(torch.Generator().manual_seed(3), "gat", 100, 47, n_layers=2)
+    if model in ("gat", "graphsage_lstm"):
+        params = gm.init_params(torch.Generator().manual_seed(3), model, 100, 47, n_layers=2)
     eng = GNNInferenceEngine(ds, model=model, fanouts=(4, 3), batch_size=128, params=params,
                              device=cuda)
     eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
@@ -58,7 +58,7 @@ def _counts(rep):
             rep.unique_rows, rep.gathered_rows, rep.prefetched_rows, rep.fused_batches)
 
 
-@pytest.mark.parametrize("model", ["graphsage", "gcn", "gat"])
+@pytest.mark.parametrize("model", ["graphsage", "gcn", "gat", "graphsage_lstm"])
 def test_depth_2_gives_the_serial_bits_on_the_card(cuda, model):
     eng = _engine(cuda, model)
     for dedup, use_kernel, prefetch in itertools.product((False, True), repeat=3):

@@ -34,6 +34,8 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref, attention_sp
                                                       expand_kv)
 from repro_torch.kernels.gat_attend import kernel as ga
 from repro_torch.kernels.gat_attend.ref import gat_attend_ref
+from repro_torch.kernels.lstm_agg import kernel as la
+from repro_torch.kernels.lstm_agg.ref import lstm_agg_ref
 from repro_torch.kernels.seg_agg import kernel as sa
 from repro_torch.kernels.seg_agg.ref import seg_agg_indexed_ref, seg_agg_ref
 from repro_torch.models.lm import attention as lm_attn
@@ -1110,6 +1112,148 @@ def test_gt_engine_routes_agree_and_count_the_fused_batches_on_the_card(cuda):
         outs.append(np.stack(eng.last_outputs))
     for out in outs[1:]:
         np.testing.assert_array_equal(out, outs[0])
+
+
+# lstm_agg at the cell's two layers (batch 4096 at fan-outs 25,10: layer 0's
+# 45,056 destinations x 25 slots through an index over ~104,000 distinct
+# gate rows, layer 1's 4,096 x 10 in place), and at ragged and small shapes.
+LSTM_SHAPES = [(45_056, 25, 104_000), (4096, 10, 0), (1, 1, 5), (65, 3, 0), (130, 64, 400),
+               (64, 2, 7), (200, 25, 0)]
+
+
+def _gates(gen, cuda, rows):
+    """Gate rows of the spread the cell's input map gives (unit normal: the
+    gates saturate some, not all)."""
+    return torch.randn((rows, 4 * la.CARD_HIDDEN), generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("num_dst,fanout,rows", LSTM_SHAPES)
+def test_lstm_agg_matches_ref(cuda, num_dst, fanout, rows):
+    """Held to ref.py in float64 at 1e-5 of the largest state (the steps' sums
+    run in float32 in another order); the indexed form and the dense form of
+    the same slots give the same bits, and a second run the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(num_dst + fanout)
+    w_hh = torch.randn((la.CARD_HIDDEN, 4 * la.CARD_HIDDEN), generator=gen,
+                       device=cuda) / la.CARD_HIDDEN ** 0.5
+    forms = []
+    if rows:
+        g = torch.full((rows + 3, 4 * la.CARD_HIDDEN), float("nan"), device=cuda)  # 3 pad rows
+        g[:rows] = _gates(gen, cuda, rows)
+        idx = torch.randint(0, rows, (num_dst * (1 + fanout),), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        forms.append((g, idx))
+        forms.append((g[idx[num_dst:].long()], None))
+    else:
+        forms.append((_gates(gen, cuda, num_dst * fanout), None))
+    kw = dict(num_dst=num_dst, fanout=fanout)
+    first = None
+    for g, index in forms:
+        before = la.lstm_agg.launches
+        got = la.lstm_agg(g, index, w_hh, **kw)
+        torch.cuda.synchronize()
+        assert la.lstm_agg.launches == before + 1
+        assert got.shape == (num_dst, la.CARD_HIDDEN) and not torch.isnan(got).any()
+        exact = lstm_agg_ref(g.double(), index, w_hh.double(), **kw)
+        gap = float((got.double() - exact).abs().max() / exact.abs().max())
+        assert gap <= 1e-5, gap
+        if first is None:
+            first = got
+            assert torch.equal(la.lstm_agg(g, index, w_hh, **kw), got)
+        else:  # the dense form of the same slots: the same bits
+            assert torch.equal(first, got)
+        del g, exact
+
+
+def test_lstm_agg_odd_base_empty_and_refusals(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h = la.CARD_HIDDEN
+    g = torch.empty(41 * 4 * h + 1, device=cuda)[1:].view(41, 4 * h)  # a base 4 bytes past 16
+    g.copy_(_gates(gen, cuda, 41))
+    idx = torch.randint(0, 41, (7 * 4,), generator=gen, device=cuda, dtype=torch.int32)
+    w_hh = torch.randn((h, 4 * h), generator=gen, device=cuda) / h ** 0.5
+    kw = dict(num_dst=7, fanout=3)
+    got = la.lstm_agg(g, idx, w_hh, **kw)  # the wrapper copies g to an aligned base
+    torch.testing.assert_close(got, lstm_agg_ref(g, idx, w_hh, **kw), rtol=1e-5, atol=1e-6)
+    assert torch.equal(la.lstm_agg(g.clone(), idx, w_hh, **kw), got)
+    assert la.lstm_agg(g, idx[:0], w_hh, num_dst=0, fanout=3).shape == (0, h)
+    with pytest.raises(ValueError, match="float32"):
+        la.lstm_agg(g.double(), idx, w_hh, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        la.lstm_agg(g, idx.long(), w_hh, **kw)
+    with pytest.raises(ValueError, match="idx on"):
+        la.lstm_agg(g, idx.cpu(), w_hh, **kw)
+    with pytest.raises(ValueError, match="H = 128"):
+        la.lstm_agg(torch.zeros((41, 256), device=cuda), idx, torch.zeros((64, 256), device=cuda),
+                    **kw)
+    with pytest.raises(ValueError, match="fan-outs up to 64"):
+        la.lstm_agg(g, torch.zeros(7 * 66, device=cuda, dtype=torch.int32), w_hh, num_dst=7,
+                    fanout=65)
+
+
+def test_lstm_forward_reads_the_live_rows_through_the_index_on_the_card(cuda):
+    """GraphSAGE-LSTM at the cell's widths (602 features, LSTM 128, maps of
+    128 concatenated, 41 classes): layer 0 maps the live distinct rows alone
+    (the pad rows, NaN, are neither mapped nor read), runs lstm_agg through
+    the inverse map, two launches a forward, the same bits on a second run,
+    and the logits within 2e-5 of the largest of the CPU's (the benchmark's
+    ``logit_gap`` limit: the card's products and sums run in other
+    orders)."""
+    from repro_torch.models.gnn import models as gm
+
+    fanouts = (25, 10)
+    gen = torch.Generator().manual_seed(9)
+    params = gm.init_params(gen, "graphsage_lstm", 602, 41, n_layers=2, device=cuda)
+    positions = 64 * 11 * 26
+    live = positions // 3
+    uniq = torch.randn((live + 11, 602), generator=gen)
+    uniq[live:] = float("nan")  # pad rows, never read
+    inverse = torch.randint(0, live, (positions,), generator=gen, dtype=torch.int32)
+    kw = dict(model="graphsage_lstm", fanouts=fanouts)
+    before = la.lstm_agg.launches
+    got = gm.forward(params, uniq.to(cuda), inverse_index=inverse.to(cuda), num_rows=live, **kw)
+    again = gm.forward(params, uniq.to(cuda), inverse_index=inverse.to(cuda), num_rows=live, **kw)
+    dense = gm.forward(params, uniq[inverse.long()].to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert la.lstm_agg.launches == before + 6
+    assert got.shape == (64, 41) and torch.isfinite(got).all() and torch.equal(got, again)
+    cpu = gm.forward([{k: v.cpu() for k, v in p.items()} for p in params], uniq[:live],
+                     inverse_index=inverse, **kw)
+    for out in (got, dense):
+        assert float((out.cpu() - cpu).abs().max() / cpu.abs().max()) <= 2e-5
+
+
+def test_lstm_engine_routes_agree_and_count_the_fused_batches_on_the_card(cuda):
+    """GraphSAGE-LSTM through the engine on the card: every batch's layers
+    run in lstm_agg (two launches a batch of a two-layer model, one fused
+    batch); the dedup, table and prefetch routes give logits within 2e-5 of
+    the largest of the first route's (their input maps run over other row
+    counts, so cuBLAS may sum in another order), and each route the same
+    bits at depth 1 and 2."""
+    from repro_torch.models.gnn import models as gm
+
+    ds = load_dataset("ogbn-products", scale=0.002, seed=0)
+    params = gm.init_params(torch.Generator().manual_seed(3), "graphsage_lstm", 100, 47,
+                            n_layers=2)
+    eng = GNNInferenceEngine(ds, model="graphsage_lstm", fanouts=(4, 3), batch_size=128,
+                             params=params, device=cuda)
+    eng.prepare("dci", total_cache_bytes=300_000, n_presample=2)
+    outs = []
+    for cfg in (EngineConfig(use_kernel=True, dedup=True),
+                EngineConfig(use_kernel=True, dedup=False),
+                EngineConfig(use_kernel=True, dedup=True, prefetch=True),
+                EngineConfig(use_kernel=False)):
+        runs = []
+        for depth in (1, 2):
+            before = la.lstm_agg.launches
+            rep = eng.run(config=cfg.replace(pipeline_depth=depth), max_batches=4,
+                          collect_outputs=True, warmup=False)
+            assert rep.fused_batches == rep.num_batches == 4
+            assert la.lstm_agg.launches - before == 8
+            runs.append(np.stack(eng.last_outputs))
+        np.testing.assert_array_equal(runs[1], runs[0])
+        outs.append(runs[0])
+    for out in outs[1:]:
+        assert np.abs(out - outs[0]).max() / np.abs(outs[0]).max() <= 2e-5
 
 
 # The sampler's per-layer kernel (sample_layer) at the offline cells' last
